@@ -16,7 +16,20 @@ Phases, each fatal on failure:
    through ``fused_forward``; each answer is checked against the plain
    chain, ``InferenceSession`` must reproduce its state rows, and the
    kernel's launch count must equal the number of requests;
-5. one ``{"kernels": [...]}`` line, the card's line, and last the
+5. the fused 8-bit Adam kernel against its plain PyTorch version on every
+   leaf shape of the MIMIC model and at (4096, 1024), (65536,) and a 0-D
+   leaf, both code formats, ungated and with gate 0 and 1, from moments of
+   a few prior steps: parameters, codes and scales must be bit-equal; the
+   kernel's and the plain version's times (CUDA events) and the bound;
+6. training at full width: ``fit_best`` with ``Adam8bit`` for 3 epochs of
+   batch 16 on seeded synthetic MIMIC-width data (30% of modality cells
+   missing), then ``test``; every loss finite, the third epoch's training
+   loss below the first's, and the fused Adam kernel launched once per
+   parameter leaf per step; the same run with ``Adam`` is timed beside it,
+   and ``torch.profiler`` splits a few steps into device and host time;
+7. the card against the CPU: the same weights take 3 ``Adam8bit`` steps on
+   the same batches on both devices and must agree;
+8. one ``{"kernels": [...]}`` line, the card's line, and last the
    ``{"ok": true, ...}`` line.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
@@ -28,17 +41,22 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from multimodn_tpu_torch import InferenceSession, MultiModN, export_model, \
-    load_model
+from multimodn_tpu_torch import Adam, Adam8bit, InferenceSession, \
+    MultiModN, MultiModNHistory, export_model, load_model
 from multimodn_tpu_torch.core.fusion import default_order, forward_chain
+from multimodn_tpu_torch.core.tree import tree_leaves
+from multimodn_tpu_torch.data import ArrayLoader, PartitionDataset, Subset
 from multimodn_tpu_torch.decoders import ClassDecoder, LogisticDecoder, \
     MLPDecoder
 from multimodn_tpu_torch.encoders import MIMICMLPEncoder, MLPEncoder
+from multimodn_tpu_torch.ops import fused_adam as fa
 from multimodn_tpu_torch.ops.build import library_path
+from multimodn_tpu_torch.ops.fused_adam import FUSED_ADAM
 from multimodn_tpu_torch.ops.fused_chain import FUSED_CHAIN, ChainSpec, \
     fused_chain_forward, fused_chain_forward_ref
 
@@ -60,6 +78,29 @@ TOL_REASON = ("fp32 FMA in k order vs cuBLAS fp32 GEMM order, K <= 1074, "
 # FFMA) and HBM3 bandwidth.
 PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 
+# The fused Adam kernel: the MIMIC protocol's optimizer settings, the extra
+# leaf shapes (one past the 50 MB L2, a wide 1-D leaf, a 0-D leaf), and the
+# tolerance. The kernel rounds every operation on its own in the plain
+# version's order, so parameters, codes and scales must be bit-equal.
+ADAM_LR, ADAM_BETAS, ADAM_EPS = 1e-3, (0.9, 0.999), 1e-8
+ADAM_EXTRA_SHAPES = ((4096, 1024), (65536,), ())
+ADAM_TOL = 0.0
+ADAM_TOL_REASON = ("bit-equal: each float32 operation rounded on its own in "
+                   "the plain version's order (no FMA contraction), IEEE "
+                   "division and square root, round-to-nearest-even casts")
+# Float32 operations per element of the update (dequantize 2, moments 7,
+# step 7, requantize 6); the bytes bound it by far.
+ADAM_OPS_PER_ELEMENT = 22
+# Training: MIMIC-width synthetic data, the MIMIC protocol's batch.
+TRAIN_SAMPLES, VAL_SAMPLES, TRAIN_EPOCHS, TRAIN_BATCH = 2048, 512, 3, 16
+MISSING_RATE = 0.3
+# Card against CPU, 3 Adam8bit steps from the same weights: cuBLAS and the
+# CPU sum each product in another order (~1e-7 relative). Adam divides by
+# the root of the second moment, so a near-zero gradient whose sign the two
+# orders round differently moves its parameter by up to ~lr per step in
+# opposite directions; over 3 steps that bounds a difference by ~6 lr.
+DEVICE_TOL = 6 * ADAM_LR
+
 
 def log(*args):
     print(*args, flush=True)
@@ -72,9 +113,9 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def mimic_model(device, seed=0):
+def mimic_model(device, seed=0, dropout=0.2):
     encoders = [MIMICMLPEncoder(MIMIC_STATE, w, (MIMIC_HIDDEN,) * 2,
-                                dropout=0.2) for w in MIMIC_WIDTHS]
+                                dropout=dropout) for w in MIMIC_WIDTHS]
     decoders = [MLPDecoder(MIMIC_STATE, (MIMIC_HIDDEN,) * 2, 2)
                 for _ in range(MIMIC_TARGETS)]
     return MultiModN(MIMIC_STATE, encoders, decoders, 1.0, 0.0, seed=seed,
@@ -292,6 +333,294 @@ def serve(device):
     return launches, serving
 
 
+def adam_grad(shape, gen, device):
+    """A gradient whose rows mix magnitudes 1e-4 apart, with a zero row
+    where the leaf has several rows."""
+    g = torch.randn(shape, generator=gen, device=device)
+    if len(shape) >= 1:
+        g[..., ::2] *= 1e-4
+    if len(shape) >= 2:
+        g[0] = 0.0
+    return g
+
+
+def adam_leaf(shape, fmt, gen, device, prior_steps=3):
+    """``[p, g, mq, ms, vq, vs, c12]`` of one leaf after ``prior_steps``
+    plain updates from zero moments, with a fresh gradient and the next
+    step's bias corrections."""
+    b1, b2 = ADAM_BETAS
+    qdt = fa.code_dtype(fmt)
+    p = torch.randn(shape, generator=gen, device=device)
+    mq, vq = (torch.zeros(shape, dtype=qdt, device=device) for _ in "mv")
+    ms, vs = (torch.zeros(fa.scale_shape(shape), device=device)
+              for _ in "mv")
+    for t in range(1, prior_steps + 1):
+        p, mq, ms, vq, vs = fa.leaf_update_ref(
+            p, adam_grad(shape, gen, device), mq, ms, vq, vs,
+            1 - b1 ** t, 1 - b2 ** t, ADAM_LR, b1, b2, ADAM_EPS, fmt=fmt)
+    t = prior_steps + 1
+    c12 = torch.tensor([1 - b1 ** t, 1 - b2 ** t], device=device)
+    return [p, adam_grad(shape, gen, device), mq, ms, vq, vs, c12]
+
+
+def adam_bound(shapes):
+    """(bound_ms, bound_by, bytes): p, g, mq, vq read and p, mq, vq written
+    (16 B per parameter), ms and vs read and written (16 B per row), c12
+    read once per leaf."""
+    n = sum(int(np.prod(s)) for s in shapes)
+    rows = sum(fa.rows_cols(s)[0] for s in shapes)
+    nbytes = 16 * n + 16 * rows + 8 * len(shapes)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = ADAM_OPS_PER_ELEMENT * n / PEAK_FP32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
+
+
+def check_adam_case(shape, fmt, gate_value, gen, device):
+    """One leaf through the kernel and the plain version on the same
+    inputs: returns (mismatching elements over p, codes and scales, max abs
+    error of p)."""
+    b1, b2 = ADAM_BETAS
+    leaf = adam_leaf(shape, fmt, gen, device)
+    p, g, mq, ms, vq, vs, c12 = leaf
+    gate = None if gate_value is None else \
+        torch.tensor(float(gate_value), device=device)
+    want = fa.leaf_update_ref(p, g, mq, ms, vq, vs, c12[0], c12[1], ADAM_LR,
+                              b1, b2, ADAM_EPS, gate=gate, fmt=fmt)
+    got = [t.clone() for t in (p, mq, ms, vq, vs)]
+    fa.leaf_update(got[0], g, got[1], got[2], got[3], got[4], c12,
+                   lr=ADAM_LR, b1=b1, b2=b2, eps=ADAM_EPS, gate=gate,
+                   fmt=fmt)
+    torch.cuda.synchronize()
+    bits = [t.view(torch.uint8) if t.element_size() == 1 else t.view(
+        torch.int32) for t in got + list(want)]
+    mismatches = sum(int((a != b).sum()) for a, b in zip(bits[:5], bits[5:]))
+    err = float(torch.nan_to_num((got[0] - want[0]).abs(),
+                                 nan=float("inf")).max()) if p.numel() \
+        else 0.0
+    return mismatches, err
+
+
+def time_adam(shapes, fmt, gen, device):
+    """Kernel and plain times of one update of every leaf in ``shapes``
+    (one launch per leaf), CUDA events."""
+    b1, b2 = ADAM_BETAS
+    leaves = [adam_leaf(s, fmt, gen, device, prior_steps=1) for s in shapes]
+
+    def kernel():
+        for p, g, mq, ms, vq, vs, c12 in leaves:
+            FUSED_ADAM.launch(p, g, mq, ms, vq, vs, c12, None, lr=ADAM_LR,
+                              b1=b1, b2=b2, eps=ADAM_EPS, fmt=fmt)
+
+    def plain():
+        for p, g, mq, ms, vq, vs, c12 in leaves:
+            fa.leaf_update_ref(p, g, mq, ms, vq, vs, c12[0], c12[1],
+                               ADAM_LR, b1, b2, ADAM_EPS, fmt=fmt)
+
+    bound_ms, bound_by, nbytes = adam_bound(shapes)
+    return {"ms": time_ms(kernel), "plain_ms": time_ms(plain),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
+
+
+def check_adam(device, gen):
+    """Phase 5: every case bit-equal, then times at the MIMIC leaves (one
+    optimizer step, 37 launches) and at each extra shape."""
+    shapes = [tuple(t.shape) for t in tree_leaves(mimic_model(device).params)]
+    cases = sorted(set(shapes)) + list(ADAM_EXTRA_SHAPES)
+    worst_err, total_bad = 0.0, 0
+    for fmt in ("fp8", "int8"):
+        for gate in (None, 0.0, 1.0):
+            bad, err = zip(*(check_adam_case(s, fmt, gate, gen, device)
+                             for s in cases))
+            worst_err, total_bad = max(worst_err, *err), total_bad + sum(bad)
+            log(f"  fmt={fmt} gate={gate}: {len(cases)} leaf shapes, "
+                f"{sum(bad)} mismatching elements, max abs err of p "
+                f"{max(err):.3e}")
+            if sum(bad) > 0:
+                raise AssertionError(
+                    f"fused_adam disagrees with the plain version (fmt={fmt}"
+                    f", gate={gate}): {sum(bad)} elements of p, codes or "
+                    f"scales differ, max abs err of p {max(err)}")
+    times = {"mimic_step": time_adam(shapes, "fp8", gen, device)}
+    for s in ADAM_EXTRA_SHAPES:
+        times["x".join(map(str, s)) or "0-D"] = time_adam([s], "fp8", gen,
+                                                         device)
+    times["mimic_step_int8"] = time_adam(shapes, "int8", gen, device)
+    for name, r in times.items():
+        log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+            f"ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}; "
+            f"{r['bytes']:.4g} B), {r['bound_ms'] / r['ms']:.2%} of bound")
+    return {"max_abs_err": worst_err, "mismatches": total_bad,
+            "n_leaves": len(shapes), "times": times}
+
+
+def mimic_training_loaders(seed=0):
+    """2048 train and 512 val samples at the MIMIC widths; 30% of (sample,
+    modality) cells missing; two labels from a fixed random linear rule on
+    the first 8 features of every modality."""
+    rng = np.random.default_rng(seed)
+    n, width = TRAIN_SAMPLES + VAL_SAMPLES, sum(MIMIC_WIDTHS)
+    X = rng.normal(size=(n, width)).astype(np.float32)
+    offsets = np.cumsum((0,) + MIMIC_WIDTHS[:-1])
+    w = np.zeros((width, MIMIC_TARGETS), np.float32)
+    for off in offsets:
+        w[off:off + 8] = rng.normal(size=(8, MIMIC_TARGETS))
+    y = (X @ w > 0).astype(np.int64)
+    missing = rng.random((n, len(MIMIC_WIDTHS))) < MISSING_RATE
+    for e, (off, wd) in enumerate(zip(offsets, MIMIC_WIDTHS)):
+        X[missing[:, e], off:off + wd] = np.nan
+    ds = PartitionDataset(X, y, list(MIMIC_WIDTHS))
+    train, val, _ = ds.random_split((TRAIN_SAMPLES, VAL_SAMPLES, 0), seed=0)
+    return ds, train, val
+
+
+def train(device, make_optimizer, train_set, val_set):
+    """``fit_best`` for 3 epochs, a timed extra ``train_epoch``, ``test``.
+    The fused Adam kernel's launches are counted over ``fit_best`` alone
+    (the main path)."""
+    model = mimic_model(device)
+    optimizer = make_optimizer()
+    train_loader = ArrayLoader(train_set, TRAIN_BATCH, shuffle=True, seed=0)
+    val_loader = ArrayLoader(val_set, TRAIN_BATCH)
+    history = MultiModNHistory([f"t{d}" for d in range(MIMIC_TARGETS)])
+    torch.cuda.synchronize()
+    FUSED_ADAM.launches = 0
+    t0 = time.perf_counter()
+    best = model.fit_best(train_loader, optimizer, "cross_entropy",
+                          epochs=TRAIN_EPOCHS, val_loader=val_loader,
+                          history=history)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = FUSED_ADAM.launches
+    t0 = time.perf_counter()
+    model.train_epoch(train_loader, optimizer, "cross_entropy")
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    results = model.test(val_loader, "cross_entropy")
+    losses = [float(np.mean(g)) for g in history.loss["train"]]
+    steps = best["epochs_ran"] * train_loader.n_batches
+    return {"launches": launches, "steps": steps, "losses": losses,
+            "val_losses": [float(np.mean(g)) for g in history.loss["val"]],
+            "best_epoch": best["best_epoch"],
+            "best_score": best["best_score"],
+            "scores": [float(x) for x in best["scores"]],
+            "fit_best_s": fit_s, "fit_best_ms_per_epoch":
+                1e3 * fit_s / best["epochs_ran"],
+            "train_epoch_ms": 1e3 * epoch_s,
+            "train_step_ms": 1e3 * epoch_s / train_loader.n_batches,
+            "test": [{"f1": r[0], "auc": r[1], "accuracy": r[2]}
+                     for r in results]}
+
+
+def check_training(device):
+    """Phase 6: the main training path and its checks."""
+    _ds, train_set, val_set = mimic_training_loaders()
+    runs = {}
+    for name, make in (("Adam8bit", lambda: Adam8bit(ADAM_LR)),
+                       ("Adam", lambda: Adam(ADAM_LR))):
+        r = train(device, make, train_set, val_set)
+        runs[name] = r
+        log(f"  {name}: {json.dumps(r)}")
+        if not all(np.isfinite(r["losses"] + r["val_losses"]
+                               + r["scores"])):
+            raise AssertionError(f"{name}: a loss or score is not finite")
+        if not r["losses"][-1] < r["losses"][0]:
+            raise AssertionError(f"{name}: the training loss did not fall "
+                                 f"({r['losses']})")
+        if not all(np.isfinite(t["auc"]) for t in r["test"]):
+            raise AssertionError(f"{name}: test gave a non-finite AUROC")
+    r = runs["Adam8bit"]
+    n_leaves = len(tree_leaves(mimic_model(device).params))
+    if r["launches"] != n_leaves * r["steps"]:
+        raise AssertionError(
+            f"fused_adam launched {r['launches']} times for {r['steps']} "
+            f"steps of {n_leaves} leaves")
+    log(f"  fused_adam launches {r['launches']} = {n_leaves} leaves x "
+        f"{r['steps']} steps; best epoch {r['best_epoch']}, score "
+        f"{r['best_score']:.4f}")
+    for name, run in runs.items():
+        log(f"  {name}: {run['train_step_ms']:.3f} ms per training step, "
+            f"{run['train_epoch_ms']:.1f} ms per training epoch "
+            f"({TRAIN_SAMPLES // TRAIN_BATCH} steps), "
+            f"{run['fit_best_ms_per_epoch']:.1f} ms per fit_best epoch "
+            f"(train + val + selection)")
+    return runs
+
+
+def profile_training(device, steps=8):
+    """Where a training step's time goes: ``torch.profiler`` over one
+    ``train_epoch`` of ``steps`` Adam8bit steps after a warm-up epoch. The
+    device time is the sum of the kernels' own times; the wall time is the
+    host clock around the epoch, synchronised, with the profiler's own cost
+    in it."""
+    from torch.profiler import ProfilerActivity, profile
+    _ds, train_set, _ = mimic_training_loaders()
+    loader = ArrayLoader(Subset(train_set.dataset,
+                                train_set.indices[:steps * TRAIN_BATCH]),
+                         TRAIN_BATCH)
+    model, optimizer = mimic_model(device), Adam8bit(ADAM_LR)
+    model.train_epoch(loader, optimizer, "cross_entropy")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.train_epoch(loader, optimizer, "cross_entropy")
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    r = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+         "device_ms_per_step": device_ms / steps if device_ms else None,
+         "device_busy_share": device_ms / wall_ms if device_ms else None,
+         "kernels_per_step": sum(e.count for e in kernels) / steps,
+         "top_kernels": [{"name": e.key[:80],
+                          "ms_per_step": e.self_device_time_total / 1e3
+                          / steps, "per_step": e.count / steps}
+                         for e in top]}
+    log(f"  profile of {steps} Adam8bit steps: {json.dumps(r)}"
+        + ("" if device_ms else " (the profiler saw no device time: not "
+           "measured)"))
+    return r
+
+
+def check_device_vs_cpu(device):
+    """Phase 7: 3 Adam8bit steps from the same weights on the card and on
+    the CPU, dropout off, the same batches."""
+    ds, train_set, _ = mimic_training_loaders()
+    subset = Subset(ds, train_set.indices[:3 * TRAIN_BATCH])
+    gpu = mimic_model(device, seed=1, dropout=0.0)
+    cpu = mimic_model("cpu", seed=1, dropout=0.0)
+    cpu.load_state_dict(gpu.state_dict())
+    for model in (gpu, cpu):
+        model.train_epoch(ArrayLoader(subset, TRAIN_BATCH),
+                          Adam8bit(ADAM_LR), "cross_entropy")
+    diffs = np.concatenate([
+        np.abs(a - b).reshape(-1) for a, b in zip(
+            tree_leaves(gpu.state_dict()), tree_leaves(cpu.state_dict()))])
+    err = float(np.nan_to_num(diffs, nan=np.inf).max())
+    log(f"  card vs CPU after 3 Adam8bit steps: max abs param diff "
+        f"{err:.3e} (tol {DEVICE_TOL:g}), {int((diffs > 1e-6).sum())} of "
+        f"{diffs.size} parameters differ by more than 1e-6")
+    if not err <= DEVICE_TOL:
+        raise AssertionError("the card and the CPU disagree after 3 steps")
+    return err
+
+
+def build_kernels():
+    """Build every kernel library at once (one nvcc per source)."""
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        futures = [pool.submit(k.library) for k in (FUSED_CHAIN, FUSED_ADAM)]
+        for f in futures:
+            f.result()
+    for name in ("fused_chain.cu", "fused_adam.cu"):
+        with open(library_path(name) + ".log") as f:
+            log(name + ": " + " ".join(
+                line.strip() for line in f
+                if "registers" in line or "spill" in line))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -310,12 +639,9 @@ def main() -> int:
 
     log("== phase 2: build")
     t0 = time.perf_counter()
-    FUSED_CHAIN.library()
-    log(f"fused_chain.cu built and loaded in "
+    build_kernels()
+    log(f"fused_chain.cu and fused_adam.cu built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
-    with open(library_path("fused_chain.cu") + ".log") as f:
-        log("".join(line for line in f if "registers" in line or
-                    "spill" in line).strip())
 
     log("== phase 3: kernel against plain")
     log(f"tolerance {TOL:g}: {TOL_REASON}")
@@ -325,6 +651,17 @@ def main() -> int:
 
     log("== phase 4: serving")
     launches, serving = serve(device)
+
+    log("== phase 5: fused Adam kernel against plain")
+    log(f"tolerance {ADAM_TOL:g}: {ADAM_TOL_REASON}")
+    adam = check_adam(device, gen)
+
+    log("== phase 6: training")
+    runs = check_training(device)
+    profile = profile_training(device)
+
+    log("== phase 7: card against CPU")
+    device_err = check_device_vs_cpu(device)
 
     main_b = mimic[SERVING_BATCH]
     entry = {
@@ -348,7 +685,34 @@ def main() -> int:
                                                 "bound_by")}
                      for B, r in mimic.items()},
     }
-    log(json.dumps({"kernels": [entry]}))
+    step = adam["times"]["mimic_step"]
+    adam_entry = {
+        "name": "fused_adam",
+        "route": "cuda",
+        "source": "multimodn_tpu_torch/csrc/fused_adam.cu",
+        "replaces": "multimodn_tpu/ops/fused_adam.py:151",
+        "launches": runs["Adam8bit"]["launches"],
+        "max_abs_err": adam["max_abs_err"],
+        "mismatches": adam["mismatches"],
+        "tolerance": ADAM_TOL,
+        # One optimizer step of the MIMIC model: one launch per leaf.
+        "ms": step["ms"],
+        "plain_ms": step["plain_ms"],
+        "bound_ms": step["bound_ms"],
+        "bound_by": step["bound_by"],
+        # No PyTorch call computes an 8-bit quantized Adam update.
+        "library_ms": None,
+        "leaves_per_step": adam["n_leaves"],
+        "steps": runs["Adam8bit"]["steps"],
+        "by_shape": adam["times"],
+        "training": {name: {k: r[k] for k in (
+            "train_step_ms", "train_epoch_ms", "fit_best_ms_per_epoch",
+            "losses", "best_epoch", "best_score")}
+            for name, r in runs.items()},
+        "training_profile": profile,
+        "device_vs_cpu_max_abs_err": device_err,
+    }
+    log(json.dumps({"kernels": [entry, adam_entry]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

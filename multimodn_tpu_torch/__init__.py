@@ -7,19 +7,23 @@ the JAX package's. Entry points run on CUDA unless the caller passes
 ``device="cpu"``; on a CPU tensor each kernel wrapper runs its plain PyTorch
 version, on a CUDA tensor it launches the hand-written kernel or raises.
 
-This slice ports the serving path: the MLP-family encoders, dense decoders,
-init states, the unrolled fusion chain, ``MultiModN`` inference
-(``predict``, ``predict_proba``, ``fused_forward``), ``InferenceSession``,
-``export_model`` / ``load_model``, and the fused-chain kernel
-(``csrc/fused_chain.cu``). Training comes with the next slice.
+Ported so far: the MLP-family encoders, dense decoders, init states, the
+unrolled fusion chain, ``MultiModN`` inference (``predict``,
+``predict_proba``, ``fused_forward`` through ``csrc/fused_chain.cu``) and
+training (``train_epoch``, ``test``, ``fit``, ``fit_best``) with ``Adam`` and
+``Adam8bit`` (whose update is ``csrc/fused_adam.cu``), ``ArrayLoader``,
+``MultiModNHistory``, ``InferenceSession`` and ``export_model`` /
+``load_model``.
 """
-from multimodn_tpu_torch.convert import params_from_jax
+from multimodn_tpu_torch.convert import opt_state_from_jax, params_from_jax
+from multimodn_tpu_torch.core.history import MultiModNHistory
 from multimodn_tpu_torch.core.state import (
     InitState,
     StaticInitState,
     TrainableInitState,
 )
 from multimodn_tpu_torch.model import MultiModN
+from multimodn_tpu_torch.optim import Adam, Adam8bit, Optimizer
 from multimodn_tpu_torch.serving import (
     InferenceSession,
     export_model,
@@ -30,11 +34,16 @@ __version__ = "0.1.0"
 
 __all__ = [
     "MultiModN",
+    "MultiModNHistory",
     "InitState",
     "TrainableInitState",
     "StaticInitState",
+    "Optimizer",
+    "Adam",
+    "Adam8bit",
     "InferenceSession",
     "export_model",
     "load_model",
     "params_from_jax",
+    "opt_state_from_jax",
 ]

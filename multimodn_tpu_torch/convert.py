@@ -1,4 +1,4 @@
-"""Weight transplant between the JAX package and this one.
+"""Weight and optimizer-state transplant between the JAX package and this one.
 
 Both packages keep one parameter tree ``{"init_state", "encoders",
 "decoders"}`` with dense weights stored ``(in, out)``, so moving weights is
@@ -13,35 +13,40 @@ import numpy as np
 import torch
 
 from multimodn_tpu_torch.core.nn import resolve_device
-
-
-def _map_leaves(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map_leaves(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map_leaves(fn, v) for v in tree]
-    return fn(tree)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+from multimodn_tpu_torch.core.tree import tree_leaves, tree_map
 
 
 def unstack_encoders(stacked: dict) -> list:
     """Scan-stacked encoder storage -> per-encoder list of trees."""
-    n = {np.shape(leaf)[0] for leaf in _leaves(stacked)}
+    n = {np.shape(leaf)[0] for leaf in tree_leaves(stacked)}
     if len(n) != 1:
         raise ValueError(f"stacked encoder leaves disagree on the leading "
                          f"(E,) axis: {sorted(n)}")
-    return [_map_leaves(lambda leaf, i=i: leaf[i], stacked)
+    return [tree_map(lambda leaf, i=i: leaf[i], stacked)
             for i in range(n.pop())]
+
+
+def _per_encoder(tree: dict) -> dict:
+    """A ``{"init_state", "encoders", "decoders"}`` tree with per-encoder
+    storage, unstacking scan-stacked encoders."""
+    encoders = tree["encoders"]
+    if isinstance(encoders, dict):
+        encoders = unstack_encoders(encoders)
+    return {"init_state": tree.get("init_state", {}),
+            "encoders": list(encoders),
+            "decoders": list(tree["decoders"])}
+
+
+def _tensor(leaf, device) -> torch.Tensor:
+    """A numpy or JAX array as a tensor on ``device``. float8 codes cross as
+    a uint8 view, the one form both numpy and torch hold bit for bit."""
+    a = np.asarray(leaf)
+    if "float8" in str(a.dtype):
+        if str(a.dtype) != "float8_e4m3fn":
+            raise TypeError(f"unsupported 8-bit code type {a.dtype}")
+        return torch.as_tensor(np.array(a).view(np.uint8),
+                               device=device).view(torch.float8_e4m3fn)
+    return torch.as_tensor(np.array(a), device=device)
 
 
 def params_from_jax(tree: dict, device=None) -> dict:
@@ -49,18 +54,35 @@ def params_from_jax(tree: dict, device=None) -> dict:
     -> this package's parameters: float32 tensors on ``device`` (CUDA
     unless the caller names another)."""
     device = resolve_device(device)
-    encoders = tree["encoders"]
-    if isinstance(encoders, dict):
-        encoders = unstack_encoders(encoders)
-    out = {"init_state": tree.get("init_state", {}),
-           "encoders": list(encoders),
-           "decoders": list(tree["decoders"])}
-    return _map_leaves(
+    return tree_map(
         lambda leaf: torch.as_tensor(np.array(leaf, np.float32),
-                                     device=device), out)
+                                     device=device), _per_encoder(tree))
 
 
 def params_to_numpy(params: dict) -> dict:
     """Parameters -> the same tree of numpy arrays (the JAX package's
     ``state_dict`` form)."""
-    return _map_leaves(lambda t: t.detach().cpu().numpy(), params)
+    return tree_map(lambda t: t.detach().cpu().numpy(), params)
+
+
+def opt_state_from_jax(state: dict, device=None) -> dict:
+    """A JAX ``Adam`` or ``Adam8bit`` optimizer state (``model.opt_state``,
+    with per-encoder or scan-stacked storage) -> the state of this
+    package's optimizer of the same name, on ``device``: the moment trees
+    (``m``/``v`` or ``mq``/``ms``/``vq``/``vs``, codes keeping their 8-bit
+    type), the step count ``t`` and the per-encoder counts ``t_enc``."""
+    device = resolve_device(device)
+    out = {}
+    for key, tree in state.items():
+        if key == "t":
+            out[key] = _tensor(tree, device).float()
+        elif key == "t_enc":
+            counts = None if tree is None else \
+                [_tensor(t, device).float().reshape(()) for t in
+                 (tree if isinstance(tree, (list, tuple))
+                  else np.asarray(tree))]
+            out[key] = counts
+        else:
+            out[key] = tree_map(lambda leaf: _tensor(leaf, device),
+                                _per_encoder(tree))
+    return out

@@ -1,10 +1,9 @@
-"""The fusion core's forward pieces (PyTorch twin of the forward half of
-``multimodn_tpu/core/fusion.py``).
+"""The fusion core (PyTorch twin of ``multimodn_tpu/core/fusion.py``).
 
 A shared state vector threads through E per-modality encoders; after the
 initial state and after every encoder step, each decoder reads the state,
-which gives the ``(E+1) x D`` output grid. NaN missingness is a validity
-mask with state passthrough:
+which gives the ``(E+1) x D`` grid of outputs, losses and confusion counts.
+NaN missingness is a validity mask with state passthrough:
 
 - ``nan_skip='sample'``: only samples whose modality holds no NaN advance;
 - ``nan_skip='batch'``: one NaN anywhere in the real batch skips the encoder
@@ -16,6 +15,8 @@ from __future__ import annotations
 from typing import Callable, List, Sequence, Tuple
 
 import torch
+
+from multimodn_tpu_torch.core.metrics import binary_confusion_counts
 
 
 def default_order(n_encoders: int) -> Tuple[Tuple[int, int], ...]:
@@ -83,8 +84,11 @@ def forward_chain(
     order: Sequence[Tuple[int, int]],
     nan_skip: str = "sample",
     init_offset: int = 0,
+    train: bool = False,
+    generator=None,
 ):
     """Run the encoder chain in ``order``, collecting per-row states.
+    ``train`` turns on the encoders' dropout, drawn from ``generator``.
 
     Returns:
         states_by_row: (E+1, B, S) — row 0 is the initial state, row e+1 the
@@ -115,7 +119,7 @@ def forward_chain(
         old_state = state
 
         def run(xv, _p=params["encoders"][enc_idx], _s=state, _enc=enc):
-            return _enc.apply(_p, _s, xv)
+            return _enc.apply(_p, _s, xv, train=train, generator=generator)
 
         state, ok, counted = chain_step_skip(
             run, data[data_idx], old_state, sample_mask, n_real,
@@ -128,3 +132,59 @@ def forward_chain(
 
     return (torch.stack(states_rows), torch.stack(state_change),
             torch.stack(row_ok), torch.stack(n_counted), state)
+
+
+def decode_grid(decoders: Sequence, params: dict, states_by_row, targets,
+                sample_mask, row_ok, criterion: Callable) -> dict:
+    """Evaluate every decoder on every state row and emit the per-cell
+    statistics.
+
+    Args:
+        states_by_row: (E+1, B, S).
+        targets: (B, D) integer labels.
+        sample_mask: (B,).
+        row_ok: (E+1,) row liveness; a dead row's cells stay 0, as the
+            reference leaves them (multimodn.py:123,167).
+    Returns a dict of (E+1, D) grids ``err_loss``, ``n_correct``, ``tp``,
+    ``tn``, ``fp``, ``fn`` (NaN columns for non-binary decoders, like the
+    reference's ``compute_metrics``) and ``outputs``, the list of D
+    (E+1, B, C_d) decoder outputs.
+    """
+    n_rows = states_by_row.shape[0]
+    row_mask = row_ok[:, None] * sample_mask.float()[None, :]   # (E+1, B)
+    cols = {k: [] for k in ("err_loss", "n_correct", "tp", "tn", "fp", "fn")}
+    outputs = []
+    for d, dec in enumerate(decoders):
+        out = dec.apply(params["decoders"][d], states_by_row).float()
+        outputs.append(out)
+        tgt = targets[:, d][None, :].expand(n_rows, targets.shape[0])
+        if criterion_accepts_mask(criterion):
+            ce = criterion(out, tgt, row_mask)
+        else:
+            # A 2-argument criterion reduces one (B, C) batch to a scalar;
+            # apply it to each metric row.
+            ce = torch.stack([torch.as_tensor(criterion(out[r], tgt[r]))
+                              for r in range(n_rows)])
+        if tuple(ce.shape) != (n_rows,):
+            raise ValueError(
+                f"criterion must reduce each (B, C) row to a scalar; got "
+                f"shape {tuple(ce.shape)} for {n_rows} rows")
+        cols["err_loss"].append(ce * row_ok)
+        pred = out.argmax(dim=-1)
+        cols["n_correct"].append(((pred == tgt).float() * row_mask).sum(-1))
+        if dec.n_classes == 2:
+            counts = binary_confusion_counts(pred, tgt, row_mask)
+        else:
+            counts = (torch.full((n_rows,), float("nan"),
+                                 device=out.device),) * 4
+        for k, c in zip(("tp", "tn", "fp", "fn"), counts):
+            cols[k].append(c)
+    grid = {k: torch.stack(v, dim=1) for k, v in cols.items()}
+    grid["outputs"] = outputs
+    return grid
+
+
+def criterion_accepts_mask(criterion) -> bool:
+    """Built-in losses take (outputs, targets, mask); user callables may
+    not."""
+    return getattr(criterion, "_accepts_mask", True)

@@ -57,6 +57,19 @@ def mlp_init(generator: torch.Generator, dims: Sequence[int],
             for d_in, d_out in zip(dims[:-1], dims[1:])]
 
 
+def dropout(x: torch.Tensor, rate: float, generator, train: bool
+            ) -> torch.Tensor:
+    """Inverted dropout with ``torch.nn.Dropout``'s semantics: the identity
+    in evaluation or without a generator; in training each element is kept
+    with probability ``1 - rate`` (a uniform draw below it) and scaled by
+    ``1 / (1 - rate)``."""
+    if not train or rate <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 def identity(x):
     return x
 

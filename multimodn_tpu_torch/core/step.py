@@ -1,17 +1,256 @@
-"""Inference over one batch (PyTorch twin of
-``multimodn_tpu/core/step.py::make_forward_fn``) on the unrolled chain.
+"""Batch loss, training and evaluation epochs, selection (PyTorch twin of
+``multimodn_tpu/core/step.py``) on the unrolled chain.
 
-PyTorch runs eagerly, so there is no program to compile and cache: the
-returned function runs the chain and every decoder on each call. Training
-programs come with a later slice (ROADMAP.md Queue A).
+PyTorch runs eagerly, so an epoch is a Python loop over the loader's
+device-resident batch stacks: forward, ``torch.autograd.grad``, the
+optimizer. Per-batch grid sums and log scalars stay on the device and are
+summed at the end of the epoch; the caller copies them to the host once per
+epoch (``to_host``). Epoch stacks have the layout of ``data.ArrayLoader``:
+modality tensors ``(n_batches, B, F_m)``, targets ``(n_batches, B, D)`` and
+a sample mask ``(n_batches, B)`` that is 0 on padded tail rows.
+
+The scan and switch chains, orders that repeat an encoder and the
+``presence_*`` mitigations are not ported yet (ROADMAP.md Queue A).
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
-from multimodn_tpu_torch.core.fusion import forward_chain
+from multimodn_tpu_torch.core.fusion import (
+    decode_grid,
+    forward_chain,
+    has_repeated_encoders,
+)
+from multimodn_tpu_torch.core.metrics import masked_binary_auroc, safe_div
+from multimodn_tpu_torch.core.tree import (
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
+
+GRID_KEYS = ("err_loss", "state_change", "n_correct", "tp", "tn", "fp", "fn",
+             "n_counted")
+
+
+def make_batch_loss_fn(encoders, decoders, init_state, criterion,
+                       err_penalty: float, state_change_penalty: float,
+                       order: Sequence[Tuple[int, int]], nan_skip: str,
+                       chain: str = "unrolled", presence_dropout: float = 0.0,
+                       presence_penalty: float = 0.0):
+    """``loss_fn(params, data, targets, sample_mask, generator, init_offset,
+    train) -> (loss, aux)`` for one padded batch.
+
+    The loss is the reference's (multimodn.py:194-202): the grid mean times
+    ``err_penalty`` plus the mean state change times
+    ``state_change_penalty``, which arrives already scaled by the
+    constructor's 0.01 (quirk #1). ``aux["enc_gates"]`` holds the (E,)
+    executed flags under ``nan_skip='batch'``, the one mode in which the
+    reference's torch optimizer skips parameters, and None otherwise."""
+    if chain != "unrolled":
+        raise NotImplementedError(
+            f"chain={chain!r}: the scan and switch chains are not ported yet "
+            "(ROADMAP.md Queue A, 'Encoding orders')")
+    if has_repeated_encoders(order):
+        raise NotImplementedError(
+            "orders that repeat an encoder are not ported yet (ROADMAP.md "
+            "Queue A, 'Encoding orders')")
+    if presence_dropout or presence_penalty:
+        raise NotImplementedError(
+            "presence_dropout / presence_penalty are not ported yet "
+            "(ROADMAP.md Queue A, 'MNAR mitigations')")
+    n_enc, n_dec = len(encoders), len(decoders)
+
+    def loss_fn(params, data, targets, sample_mask, generator, init_offset,
+                train: bool):
+        states, state_change, row_ok, n_counted, final_state = forward_chain(
+            encoders, init_state, params, data, sample_mask, order=order,
+            nan_skip=nan_skip, init_offset=init_offset, train=train,
+            generator=generator)
+        grid = decode_grid(decoders, params, states, targets, sample_mask,
+                           row_ok, criterion)
+        global_err = grid["err_loss"].sum() / (n_dec * (n_enc + 1))
+        global_sc = state_change.sum() / n_enc
+        loss = global_err * err_penalty + global_sc * state_change_penalty
+        aux = {
+            "enc_gates": row_ok[1:] if nan_skip == "batch" else None,
+            "err_loss": grid["err_loss"],
+            "state_change": state_change,
+            "n_correct": grid["n_correct"],
+            "tp": grid["tp"], "tn": grid["tn"],
+            "fp": grid["fp"], "fn": grid["fn"],
+            "n_counted": n_counted,
+            "loss": loss,
+            "global_err": global_err,
+            "global_sc": global_sc,
+            "final_outputs": [out[-1] for out in grid["outputs"]],
+            "final_state": final_state,
+            "all_outputs": grid["outputs"],
+        }
+        return loss, aux
+
+    return loss_fn
+
+
+def epoch_reduction(sums: dict, n_batches: int,
+                    ones_initialized_counts: bool = True) -> dict:
+    """Reduce an epoch's grid sums into the metrics the history stores.
+    ``ones_initialized_counts`` keeps the reference's accuracy denominator
+    starting at ones (``multimodn.py:105,270``, quirk #3)."""
+    n_samples = sums["n_counted"][:, None]
+    if ones_initialized_counts:
+        n_samples = n_samples + 1.0
+    sensitivity = safe_div(sums["tp"], sums["tp"] + sums["fn"])
+    specificity = safe_div(sums["tn"], sums["tn"] + sums["fp"])
+    return {
+        "loss": sums["err_loss"] / n_batches,
+        "state_change_loss": sums["state_change"] / n_batches,
+        "accuracy": sums["n_correct"] / n_samples,
+        "sensitivity": sensitivity,
+        "specificity": specificity,
+        "balanced_accuracy": (sensitivity + specificity) / 2.0,
+        "n_samples": n_samples,
+        "tp": sums["tp"], "tn": sums["tn"], "fp": sums["fp"],
+        "fn": sums["fn"],
+    }
+
+
+def gated_update(optimizer, grads, opt_state, params, enc_gates=None):
+    """Apply one optimizer step to ``params`` in place and return the new
+    optimizer state. An optimizer with ``fused_apply`` writes the
+    parameters itself (``Adam8bit``, through the fused Adam kernel on a
+    CUDA model); otherwise its ``update`` is added to them. ``enc_gates``
+    carries the per-encoder structural skip (``optim``).
+
+    The JAX package can also skip a fully padded batch here; such batches
+    come only from its vmapped k-fold stacking, which is not ported."""
+    fused = getattr(optimizer, "fused_apply", None)
+    if fused is not None:
+        return fused(grads, opt_state, params, enc_gates=enc_gates)
+    updates, opt_state = optimizer.update(grads, opt_state, params,
+                                          enc_gates=enc_gates)
+    tree_map(lambda p, u: p.add_(u), params, updates)
+    return opt_state
+
+
+def to_host(tree):
+    """A tree of float tensors copied to the host in one transfer (one
+    wait for the device), as float32 CPU tensors of the same shapes."""
+    leaves = tree_leaves(tree)
+    if not leaves:
+        return tree
+    flat = torch.cat([t.detach().reshape(-1).float() for t in leaves]).cpu()
+    pieces = torch.split(flat, [t.numel() for t in leaves])
+    return tree_unflatten(tree, [p.reshape(t.shape)
+                                 for p, t in zip(pieces, leaves)])
+
+
+def _batch(stacks, b: int):
+    data, targets, mask = stacks
+    return tuple(d[b] for d in data), targets[b], mask[b]
+
+
+def train_batch(loss_fn, optimizer, params, opt_state, batch, generator,
+                offset: int):
+    """One training step on one padded batch: the loss and its gradient
+    with respect to every parameter leaf, then ``gated_update``. Returns
+    ``(opt_state, aux)`` with ``aux`` detached."""
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    leaves = tree_leaves(live)
+    loss, aux = loss_fn(live, *batch, generator, offset, True)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = tree_unflatten(params, [
+        torch.zeros_like(p) if g is None else g
+        for p, g in zip(leaves, grads)])
+    with torch.no_grad():
+        opt_state = gated_update(optimizer, grads, opt_state, params,
+                                 enc_gates=aux["enc_gates"])
+    return opt_state, tree_map(lambda t: None if t is None else t.detach(),
+                               aux)
+
+
+def run_train_epoch(loss_fn, optimizer, params, opt_state, stacks,
+                    counts: Sequence[int], generator, offset: int):
+    """Every batch of an epoch through ``train_batch``. Returns
+    ``(opt_state, sums, batch_log, offset)``: the per-cell sums of
+    ``GRID_KEYS``, an (n_batches, 3) tensor of (loss, grid mean, state
+    change) per batch, all on the device, and the init-state cycle offset
+    advanced by the real samples."""
+    ys: List[dict] = []
+    for b, n_real in enumerate(counts):
+        opt_state, aux = train_batch(loss_fn, optimizer, params, opt_state,
+                                     _batch(stacks, b), generator, offset)
+        offset += n_real
+        ys.append(aux)
+    sums = {k: torch.stack([y[k] for y in ys]).sum(dim=0) for k in GRID_KEYS}
+    batch_log = torch.stack([torch.stack([y["loss"], y["global_err"],
+                                          y["global_sc"]]) for y in ys])
+    return opt_state, sums, batch_log, offset
+
+
+@torch.no_grad()
+def run_eval_epoch(loss_fn, params, stacks, counts: Sequence[int],
+                   offset: int):
+    """Every batch in evaluation mode. Returns ``(sums, final_outputs,
+    offset)``: the grid sums on the device and, per decoder, the
+    final-encoder-row outputs of every (padded) sample,
+    ``(n_batches * B, C_d)``, which the performance suite and the selection
+    score read (multimodn.py:354-357)."""
+    ys: List[dict] = []
+    for b, n_real in enumerate(counts):
+        _, aux = loss_fn(params, *_batch(stacks, b), None, offset, False)
+        offset += n_real
+        ys.append(aux)
+    sums = {k: torch.stack([y[k] for y in ys]).sum(dim=0) for k in GRID_KEYS}
+    outputs = [torch.cat([y["final_outputs"][d] for y in ys])
+               for d in range(len(ys[0]["final_outputs"]))]
+    return sums, outputs, offset
+
+
+def make_selection_score(binary_decoders: Sequence[bool]):
+    """Per-epoch checkpoint-selection score: the sum over binary decoders of
+    validation AUROC plus balanced accuracy on the final encoder row's
+    epoch outputs, the reference MIMIC rule
+    (``mimic_single_task_pipeline.py:141-158``). A NaN score becomes -inf,
+    so a diverged epoch never wins."""
+
+    def selection_score(outputs, val_targets, val_mask):
+        flat_t = val_targets.reshape(-1, val_targets.shape[-1])
+        flat_m = val_mask.reshape(-1).float()
+        score = torch.zeros((), device=flat_m.device)
+        for d, is_binary in enumerate(binary_decoders):
+            if not is_binary:
+                continue
+            out = outputs[d]
+            # Row-sum normalisation like the reference's test() (quirk #5),
+            # with a sign-preserving guard against a zero sum.
+            s = out.sum(dim=1, keepdim=True)
+            norm = out / torch.where(s.abs() < 1e-12,
+                                     torch.full_like(s, 1e-12), s)
+            t = flat_t[:, d]
+            auc = masked_binary_auroc(norm[:, 1], t, flat_m)
+            pred = norm.argmax(dim=1)
+            tp = (flat_m * ((pred == 1) & (t == 1))).sum()
+            tn = (flat_m * ((pred == 0) & (t == 0))).sum()
+            fp = (flat_m * ((pred == 1) & (t == 0))).sum()
+            fn = (flat_m * ((pred == 0) & (t == 1))).sum()
+            score = score + auc + (safe_div(tp, tp + fn)
+                                   + safe_div(tn, tn + fp)) / 2.0
+        return torch.where(torch.isnan(score),
+                           torch.full_like(score, float("-inf")), score)
+
+    return selection_score
+
+
+def update_best(best: tuple, params: dict, score: float, epoch: int):
+    """Strictly-greater best-checkpoint update (the reference's ``>`` at
+    ``mimic_single_task_pipeline.py:149``). ``best`` is ``(params, score,
+    epoch)``, starting at ``(copy, -inf, -1)``; returns ``(best,
+    improved)``."""
+    if score > best[1]:
+        return (tree_map(torch.clone, params), score, epoch), True
+    return best, False
 
 
 def make_forward_fn(encoders, decoders, init_state,

@@ -1,0 +1,34 @@
+"""Nested dict/list trees of tensors: the parameter, gradient and optimizer
+state layout shared with the JAX package (``{"init_state", "encoders",
+"decoders"}`` with per-encoder lists)."""
+from __future__ import annotations
+
+from typing import Callable, Iterable, List
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """Apply ``fn`` to aligned leaves of ``tree`` and ``rest``; dicts and
+    lists (or tuples, returned as lists) are the inner nodes. Dicts are
+    walked in sorted key order, as JAX walks them, so trees align whatever
+    order their keys were inserted in."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> List:
+    """Leaves in ``tree_map`` order."""
+    out: List = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(like, leaves: Iterable):
+    """A tree shaped like ``like`` holding ``leaves`` in ``tree_map``
+    order."""
+    it = iter(leaves)
+    return tree_map(lambda _leaf: next(it), like)

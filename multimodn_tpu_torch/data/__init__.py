@@ -1,0 +1,8 @@
+from multimodn_tpu_torch.data.dataset import (
+    MultiModDataset,
+    PartitionDataset,
+    Subset,
+)
+from multimodn_tpu_torch.data.loader import ArrayLoader
+
+__all__ = ["MultiModDataset", "PartitionDataset", "Subset", "ArrayLoader"]

@@ -22,8 +22,8 @@ class MultiModEncoder(ABC):
         """Create this encoder's parameter dict."""
 
     @abstractmethod
-    def apply(self, params: dict, state: torch.Tensor,
-              x: torch.Tensor) -> torch.Tensor:
+    def apply(self, params: dict, state: torch.Tensor, x: torch.Tensor,
+              train: bool = False, generator=None) -> torch.Tensor:
         """Advance the (B, state_size) fusion state with one modality's
         (B, n_features) features, NaNs already zero-filled by the caller.
-        Inference only: dropout is the identity here."""
+        ``train`` turns on dropout, drawn from ``generator``."""

@@ -3,8 +3,9 @@
 - ``MLPEncoder``: features flow through the hidden stack; the state joins
   the input of the LAST layer, which has no activation.
 - ``MIMICMLPEncoder``: the state joins the FIRST layer's input, and the
-  activation runs on every layer including the last. Its dropout acts only
-  in training, which this package does not run yet.
+  activation runs on every layer including the last. In training, inverted
+  dropout acts on ``[x, state]`` before the first layer, drawn from the
+  generator the model passes in.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 from multimodn_tpu_torch.core.nn import (
     dense_apply,
     dense_init,
+    dropout,
     mlp_init,
     resolve_activation,
 )
@@ -44,7 +46,7 @@ class MLPEncoder(MultiModEncoder):
         return {"layers": [dense_init(generator, i, o, device)
                            for i, o in self._layer_dims]}
 
-    def apply(self, params, state, x):
+    def apply(self, params, state, x, train=False, generator=None):
         layers = params["layers"]
         for layer in layers[:-1]:
             x = self.activation(dense_apply(layer, x))
@@ -80,8 +82,9 @@ class MIMICMLPEncoder(MultiModEncoder):
     def init(self, generator, device=None) -> dict:
         return {"layers": mlp_init(generator, self._dims, device)}
 
-    def apply(self, params, state, x):
-        x = torch.cat([x, state], dim=-1)
+    def apply(self, params, state, x, train=False, generator=None):
+        x = dropout(torch.cat([x, state], dim=-1), self.dropout_rate,
+                    generator, train)
         for layer in params["layers"]:
             x = self.activation(dense_apply(layer, x))
         return x

@@ -1,5 +1,4 @@
-"""The MultiModN model object (PyTorch twin of the inference surface of
-``multimodn_tpu/model.py``).
+"""The MultiModN model object (PyTorch twin of ``multimodn_tpu/model.py``).
 
 A model holds static encoder, decoder and init-state configs plus one
 parameter tree ``{"init_state", "encoders", "decoders"}`` of float32 tensors
@@ -7,40 +6,55 @@ on its device, in the JAX package's layout (per-encoder lists, dense weights
 ``(in, out)``), so ``state_dict`` / ``load_state_dict`` exchange weights with
 the JAX package as plain copies.
 
-This slice ports inference: ``predict`` / ``predict_proba`` on per-modality
-arrays (no NaN skip, quirk #9), ``fused_forward`` through the fused-chain
-CUDA kernel, and the ``StaticInitState`` cycle bookkeeping. Loader-based
-inference, ``get_states`` and every training method come with later slices
-(ROADMAP.md Queue A).
+Inference: ``predict`` / ``predict_proba`` on per-modality arrays or a
+loader (no NaN skip, quirk #9) and ``fused_forward`` through the fused-chain
+CUDA kernel. Training: ``train_epoch``, ``test``, ``fit`` and ``fit_best``
+on the unrolled chain, one Python loop over batches per epoch with one host
+transfer per epoch; the optimizer state lives in ``opt_state``. The
+``StaticInitState`` cycle continues across every call, as the reference's
+shared ``itertools.cycle`` does.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from multimodn_tpu_torch.convert import params_from_jax, params_to_numpy
 from multimodn_tpu_torch.core.fusion import default_order
+from multimodn_tpu_torch.core.history import MultiModNHistory
+from multimodn_tpu_torch.core.losses import resolve_criterion
+from multimodn_tpu_torch.core.metrics import get_performance_metrics
 from multimodn_tpu_torch.core.nn import resolve_device
 from multimodn_tpu_torch.core.state import (
     InitState,
     StaticInitState,
     TrainableInitState,
 )
-from multimodn_tpu_torch.core.step import make_forward_fn
+from multimodn_tpu_torch.core.step import (
+    epoch_reduction,
+    make_batch_loss_fn,
+    make_forward_fn,
+    make_selection_score,
+    run_eval_epoch,
+    run_train_epoch,
+    to_host,
+    update_best,
+)
+from multimodn_tpu_torch.core.tree import tree_map
 from multimodn_tpu_torch.ops.fused_chain import ChainSpec, fused_chain_forward
+from multimodn_tpu_torch.optim import Optimizer
 
 
 class MultiModN:
     """Sequential multimodal fusion over a shared state.
 
     ``device`` defaults to CUDA; without a GPU the caller must pass
-    ``device="cpu"``. Inference runs the unrolled chain, which gives the
-    same results as the JAX package's scan and switch chains. Training
-    options (``err_penalty``, ``state_change_penalty``, ``shuffle_mode``,
-    ``ones_initialized_counts``, ``presence_*``) are checked and kept for
-    the training slice and for ``export_model``."""
+    ``device="cpu"``. Everything runs the unrolled chain, which gives the
+    same results as the JAX package's scan and switch chains. Training with
+    ``shuffle_mode`` or ``presence_*`` is not ported yet and raises; the
+    options are kept for ``export_model``."""
 
     def __init__(
         self,
@@ -108,6 +122,9 @@ class MultiModN:
         # continues across calls, like the reference's shared
         # itertools.cycle.
         self._cycle_offset = 0
+        self._opt = None            # the optimizer opt_state belongs to
+        self.opt_state = None
+        self._epoch_counter = 0     # seeds each training epoch's dropout
 
     # ------------------------------------------------------------------
     # Cycle bookkeeping
@@ -130,17 +147,32 @@ class MultiModN:
     # ------------------------------------------------------------------
     # Inference
     # ------------------------------------------------------------------
-    def _resolve_order(self, encoder_sequence=None):
+    def _resolve_order(self, encoder_sequence=None, loader=None):
+        if loader is not None:
+            if loader.has_per_batch_sequences():
+                raise NotImplementedError(
+                    "per-batch encoding sequences need the scan or switch "
+                    "chain, which is not ported yet (ROADMAP.md Queue A, "
+                    "'Encoding orders')")
+            if encoder_sequence is None:
+                encoder_sequence = loader.encoding_sequence
         if encoder_sequence is None:
-            return default_order(len(self.encoders))
-        seq = np.asarray(encoder_sequence).reshape(-1)
-        return tuple((int(k), int(e)) for k, e in enumerate(seq))
+            order = default_order(len(self.encoders))
+        else:
+            seq = np.asarray(encoder_sequence).reshape(-1)
+            order = tuple((int(k), int(e)) for k, e in enumerate(seq))
+        if loader is not None:
+            widths = loader.modality_widths
+            for k, e in order:
+                nf = getattr(self.encoders[e], "n_features", None)
+                if nf is not None and widths[k] != nf:
+                    raise ValueError(
+                        f"encoding sequence pairs modality {k} (width "
+                        f"{widths[k]}) with encoder {e} (n_features {nf}); "
+                        "widths must match.")
+        return order
 
     def _to_device(self, x: Sequence) -> tuple:
-        if self._is_loader(x):
-            raise NotImplementedError(
-                "inference from a loader is not ported yet (ROADMAP.md "
-                "Queue A, 'Model surface'); pass per-modality arrays")
         return tuple(torch.as_tensor(np.asarray(m, np.float32)
                                      if not torch.is_tensor(m) else m,
                                      dtype=torch.float32, device=self.device)
@@ -162,19 +194,41 @@ class MultiModN:
         self._advance_cycle(n)
         return preds, outputs
 
-    def predict(self, x: Sequence, encoder_sequence=None) -> np.ndarray:
-        """(E+1, D, N) argmax class predictions after every step.
+    @torch.no_grad()
+    def _predict_loader(self, loader):
+        """The no-skip forward over a loader's batches, padded rows
+        dropped: ``(preds (E+1, D, N), outputs list of (E+1, N, C_d))``."""
+        fwd = make_forward_fn(self.encoders, self.decoders, self.init_state,
+                              self._resolve_order(loader=loader), "none")
+        data, _targets, mask = loader.stacks(self.device)
+        offset, preds, outs = self._cycle_base(), [], []
+        for b, n_real in enumerate(loader.batch_counts()):
+            p, o, _, _ = fwd(self.params, tuple(d[b] for d in data), mask[b],
+                             init_offset=offset)
+            offset += n_real
+            preds.append(p[:, :, :n_real])
+            outs.append([out[:, :n_real] for out in o])
+        self._advance_cycle(loader.n_samples)
+        return (torch.cat(preds, dim=2),
+                [torch.cat([o[d] for o in outs], dim=1)
+                 for d in range(len(self.decoders))])
+
+    def predict(self, x, encoder_sequence=None) -> np.ndarray:
+        """(E+1, D, N) argmax class predictions after every step, from
+        per-modality arrays or a loader (batch by batch).
 
         NaN inputs are NOT skipped here, matching the reference's predict
         (quirk #9): a NaN flows through the encoder into the state."""
+        if self._is_loader(x):
+            return self._predict_loader(x)[0].cpu().numpy()
         return self._predict(x, encoder_sequence)[0].cpu().numpy()
 
-    def predict_proba(self, x: Sequence, encoder_sequence=None
-                      ) -> List[np.ndarray]:
+    def predict_proba(self, x, encoder_sequence=None) -> List[np.ndarray]:
         """Per-decoder (E+1, N, C_d) raw decoder outputs after every step,
         with ``predict``'s no-skip semantics."""
-        return [o.cpu().numpy()
-                for o in self._predict(x, encoder_sequence)[1]]
+        outs = self._predict_loader(x)[1] if self._is_loader(x) \
+            else self._predict(x, encoder_sequence)[1]
+        return [o.cpu().numpy() for o in outs]
 
     @torch.no_grad()
     def fused_forward(self, x: Sequence):
@@ -203,6 +257,237 @@ class MultiModN:
             self.params["init_state"], 1, 0)[0].contiguous()
         return fused_chain_forward(self._chain_spec, self.params, data,
                                    valid, init_row)
+
+    # ------------------------------------------------------------------
+    # Training / evaluation
+    # ------------------------------------------------------------------
+    def _loss_fn(self, criterion, order):
+        return make_batch_loss_fn(
+            self.encoders, self.decoders, self.init_state, criterion,
+            self.err_penalty, self.state_change_penalty, order, self.nan_skip,
+            presence_dropout=self.presence_dropout,
+            presence_penalty=self.presence_penalty)
+
+    def _train_order(self, loader):
+        if self.shuffle_mode:
+            raise NotImplementedError(
+                "shuffle_mode draws the modality order per batch in the scan "
+                "or switch chain, which is not ported yet (ROADMAP.md Queue "
+                "A, 'Encoding orders')")
+        return self._resolve_order(loader=loader)
+
+    def _use_optimizer(self, optimizer: Optimizer):
+        """A new optimizer starts a new state; the same one continues."""
+        if self._opt is not optimizer or self.opt_state is None:
+            self._opt = optimizer
+            self.opt_state = optimizer.init(self.params)
+
+    def _generator(self, epoch: int) -> torch.Generator:
+        """The dropout generator of this model's training epoch ``epoch``."""
+        return torch.Generator(device=self.device).manual_seed(
+            self._seed * 1_000_003 + epoch)
+
+    def _train_pass(self, loader, optimizer, loss_fn, epoch: int):
+        """One training epoch; returns its grid sums and batch log on the
+        device."""
+        loader.reshuffle()
+        self.opt_state, sums, batch_log, _ = run_train_epoch(
+            loss_fn, optimizer, self.params, self.opt_state,
+            loader.stacks(self.device), loader.batch_counts(),
+            self._generator(epoch), self._cycle_base())
+        self._advance_cycle(loader.n_samples)
+        return sums, batch_log
+
+    def _eval_pass(self, loader, loss_fn):
+        """One evaluation epoch; returns its grid sums and final-row
+        outputs on the device."""
+        sums, outputs, _ = run_eval_epoch(
+            loss_fn, self.params, loader.stacks(self.device),
+            loader.batch_counts(), self._cycle_base())
+        self._advance_cycle(loader.n_samples)
+        return sums, outputs
+
+    def _stats(self, host_sums: dict, n_batches: int) -> dict:
+        return {k: v.numpy() for k, v in epoch_reduction(
+            host_sums, n_batches, self.ones_initialized_counts).items()}
+
+    def train_epoch(
+        self,
+        train_loader,
+        optimizer: Optimizer,
+        criterion: Union[str, Callable, None] = None,
+        history: Optional[MultiModNHistory] = None,
+        log_interval: Optional[int] = None,
+        logger: Optional[Callable] = None,
+        last_epoch: bool = False,
+    ):
+        """One training epoch over ``train_loader``. With ``last_epoch``
+        it returns ``test`` on the training loader, as the reference does
+        (multimodn.py:251, quirk #16)."""
+        if log_interval and not logger:
+            logger = print
+        criterion = resolve_criterion(criterion)
+        loss_fn = self._loss_fn(criterion, self._train_order(train_loader))
+        self._use_optimizer(optimizer)
+        sums, batch_log = self._train_pass(train_loader, optimizer, loss_fn,
+                                           self._epoch_counter)
+        self._epoch_counter += 1
+        sums, batch_log = to_host([sums, batch_log])
+        stats = self._stats(sums, train_loader.n_batches)
+        if log_interval:
+            # The reference's in-loop log lines (multimodn.py:214-220),
+            # written after the epoch from the per-batch values.
+            n_batches = train_loader.n_batches
+            for b in range(log_interval - 1, n_batches, log_interval):
+                logger(f"Batch {b + 1}/{n_batches}\n"
+                       f"\tLoss: {batch_log[b][0]:.4f}\n"
+                       f"\tErr loss: {batch_log[b][1]:.4f}\n"
+                       f"\tState change: {batch_log[b][2]:.4f}")
+        if history is not None:
+            history.append_epoch("train", stats,
+                                 state_change=stats["state_change_loss"])
+        if last_epoch:
+            return self.test(train_loader, criterion, history=None)
+        return None
+
+    def test(
+        self,
+        test_loader,
+        criterion: Union[str, Callable, None] = None,
+        history: Optional[MultiModNHistory] = None,
+        tag: str = "test",
+        log_results: bool = False,
+        logger: Optional[Callable] = None,
+    ) -> list:
+        """Evaluate on ``test_loader``; returns one 15-tuple of
+        ``get_performance_metrics`` per decoder, from the final encoder
+        row's outputs normalised by their row sums (not softmax, quirk
+        #5)."""
+        if log_results and not logger:
+            logger = print
+        criterion = resolve_criterion(criterion)
+        loss_fn = self._loss_fn(criterion,
+                                self._resolve_order(loader=test_loader))
+        sums, outputs = to_host(list(self._eval_pass(test_loader, loss_fn)))
+        stats = self._stats(sums, test_loader.n_batches)
+        if log_results:
+            logger(f"{tag.capitalize()} results\n"
+                   f"\tAverage loss: {float(np.mean(stats['loss'])):.4f}\n"
+                   f"\tAccuracy: {float(np.mean(stats['accuracy'])):.4f}")
+        if history is not None:
+            history.append_epoch(tag, stats)
+        _data, targets, mask = test_loader.host_stacks()
+        flat_mask = mask.reshape(-1) > 0
+        flat_targets = targets.reshape(-1, targets.shape[-1])[flat_mask]
+        results = []
+        for d, out in enumerate(outputs):
+            out = out.numpy()[flat_mask]
+            # A saturated row summing to 0 gives NaN, as in the reference.
+            with np.errstate(invalid="ignore", divide="ignore"):
+                out = out / out.sum(axis=1, keepdims=True)
+            results.append(get_performance_metrics(
+                flat_targets[:, d], out.argmax(axis=1), out[:, 1]))
+        return results
+
+    def fit(
+        self,
+        train_loader,
+        optimizer: Optimizer,
+        criterion: Union[str, Callable, None] = None,
+        epochs: int = 1,
+        history: Optional[MultiModNHistory] = None,
+        val_loader=None,
+        val_tag: str = "val",
+    ):
+        """Train ``epochs`` epochs, each followed by a validation pass when
+        ``val_loader`` is given; the history gets each epoch's grids, as
+        looped ``train_epoch`` / ``test`` calls would give."""
+        criterion = resolve_criterion(criterion)
+        loss_fn = self._loss_fn(criterion, self._train_order(train_loader))
+        self._use_optimizer(optimizer)
+        for e in range(epochs):
+            sums = [self._train_pass(train_loader, optimizer, loss_fn,
+                                     self._epoch_counter + e)[0]]
+            if val_loader is not None:
+                sums.append(self._eval_pass(val_loader, loss_fn)[0])
+            if history is not None:
+                sums = to_host(sums)
+                stats = self._stats(sums[0], train_loader.n_batches)
+                history.append_epoch("train", stats,
+                                     state_change=stats["state_change_loss"])
+                if val_loader is not None:
+                    history.append_epoch(val_tag, self._stats(
+                        sums[1], val_loader.n_batches))
+        self._epoch_counter += epochs
+        return history
+
+    def fit_best(
+        self,
+        train_loader,
+        optimizer: Optimizer,
+        criterion: Union[str, Callable, None] = None,
+        epochs: int = 1,
+        val_loader=None,
+        history: Optional[MultiModNHistory] = None,
+        val_tag: str = "val",
+        restore_best: bool = True,
+        patience: Optional[int] = None,
+    ) -> dict:
+        """Train ``epochs`` epochs and keep the parameters of the epoch with
+        the best validation score: AUROC plus balanced accuracy summed over
+        the binary decoders, the reference MIMIC rule
+        (``mimic_single_task_pipeline.py:141-158``), strictly greater wins.
+
+        ``patience``: stop once the score has not improved for ``patience``
+        consecutive epochs (at least 1). The host reads the score once per
+        epoch. Returns ``{"best_epoch", "best_score", "best_params",
+        "scores", "epochs_ran"}``; with ``restore_best`` the model's
+        parameters become the best epoch's."""
+        if val_loader is None:
+            raise ValueError("fit_best requires a val_loader")
+        binary = [d.n_classes == 2 for d in self.decoders]
+        if not any(binary):
+            raise ValueError(
+                "fit_best requires at least one binary (n_classes==2) "
+                "decoder: the AUROC+BAC selection score is undefined "
+                "otherwise. Use fit() for non-binary models.")
+        if patience is not None and patience < 1:
+            raise ValueError(f"patience must be >= 1, got {patience}")
+        criterion = resolve_criterion(criterion)
+        loss_fn = self._loss_fn(criterion, self._train_order(train_loader))
+        self._use_optimizer(optimizer)
+        score_fn = make_selection_score(binary)
+        _vdata, vtargets, vmask = val_loader.stacks(self.device)
+        best = (tree_map(torch.clone, self.params), float("-inf"), -1)
+        scores, since = [], 0
+        for e in range(epochs):
+            tsums, _ = self._train_pass(train_loader, optimizer, loss_fn,
+                                        self._epoch_counter + e)
+            vsums, outputs = self._eval_pass(val_loader, loss_fn)
+            tsums, vsums, score = to_host(
+                [tsums, vsums, score_fn(outputs, vtargets, vmask)])
+            scores.append(float(score))
+            best, improved = update_best(best, self.params, scores[-1], e)
+            since = 0 if improved else since + 1
+            if history is not None:
+                stats = self._stats(tsums, train_loader.n_batches)
+                history.append_epoch("train", stats,
+                                     state_change=stats["state_change_loss"])
+                history.append_epoch(val_tag, self._stats(
+                    vsums, val_loader.n_batches))
+            if patience is not None and since >= patience:
+                break
+        self._epoch_counter += len(scores)
+        best_params, best_score, best_epoch = best
+        if restore_best:
+            self.params = best_params
+        return {
+            "best_epoch": best_epoch,
+            "best_score": best_score,
+            "best_params": params_to_numpy(best_params),
+            "scores": np.asarray(scores, np.float32),
+            "epochs_ran": len(scores),
+        }
 
     # ------------------------------------------------------------------
     # Persistence

@@ -1,0 +1,201 @@
+"""Optimizers with torch's default hyperparameters and torch's structural
+skip (PyTorch twin of ``multimodn_tpu/optim.py``).
+
+The reference builds ``torch.optim.Adam(model.parameters(), lr)`` and zeroes
+gradients to None before each backward. An encoder that a batch NaN-skips
+(``multimodn.py:167-169``) never enters that batch's graph, its ``.grad``
+stays None, and torch's Adam skips it: no moment decay and no step-count
+increment. Here every parameter is in the graph (the skip is a
+``torch.where``), so a skipped encoder gets a zero gradient, not None; the
+skip is driven instead by the chain's executed flags (``enc_gates``, one per
+encoder, given under ``nan_skip='batch'``): a gated-off encoder keeps its
+moments and its own step count. The other parameters form one group with
+one step count.
+
+An optimizer's state is a dict of trees shaped like the parameters plus the
+step counts ``t`` (0-D tensor) and ``t_enc`` (one 0-D tensor per encoder),
+all on the parameters' device; the model owns it. The bias corrections are
+computed on the device from those counts, so a step never reads the host.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import torch
+
+from multimodn_tpu_torch.core.tree import tree_leaves, tree_map, tree_unflatten
+from multimodn_tpu_torch.ops import fused_adam as fa
+
+
+def _device(params) -> torch.device:
+    leaves = tree_leaves(params)
+    return leaves[0].device if leaves else torch.device("cpu")
+
+
+def _step_counts(params):
+    """``(t, t_enc)`` zeros: one count for the non-encoder group, one per
+    encoder (None without an encoder group)."""
+    dev = _device(params)
+    enc = params.get("encoders") if isinstance(params, dict) else None
+    t_enc = None if enc is None else [torch.zeros((), device=dev)
+                                      for _ in enc]
+    return torch.zeros((), device=dev), t_enc
+
+
+def _walk(op: Callable, trees: Sequence, n_out: int) -> List:
+    """``op`` over the aligned leaves of ``trees``; returns ``n_out`` trees
+    shaped like ``trees[0]``."""
+    outs = [op(*leaves) for leaves in zip(*(tree_leaves(t) for t in trees))]
+    return [tree_unflatten(trees[0], [o[i] for o in outs])
+            for i in range(n_out)]
+
+
+def _bias_corrections(b1: float, b2: float, t: torch.Tensor) -> torch.Tensor:
+    """(2,) tensor ``(1 - b1^t, 1 - b2^t)`` in float32 on t's device."""
+    return torch.stack([1 - torch.pow(b1, t), 1 - torch.pow(b2, t)])
+
+
+def _drive(b1: float, b2: float, state: dict, enc_gates, op: Callable,
+           trees: Sequence, n_out: int):
+    """The step driver ``Adam`` and ``Adam8bit`` share: the step counts,
+    the bias corrections and the structural skip. ``op(c12, gate,
+    *leaves)`` updates one leaf (``gate`` None outside the gated encoder
+    groups). Returns ``(n_out output trees, t, t_enc)``."""
+    t_new = state["t"] + 1.0
+    c12 = _bias_corrections(b1, b2, t_new)
+    t_enc = state["t_enc"]
+    if enc_gates is None or t_enc is None:
+        outs = _walk(lambda *leaves: op(c12, None, *leaves), trees, n_out)
+        return outs, t_new, None if t_enc is None else \
+            [t + 1.0 for t in t_enc]
+    rest = [{k: v for k, v in tree.items() if k != "encoders"}
+            for tree in trees]
+    outs = _walk(lambda *leaves: op(c12, None, *leaves), rest, n_out)
+    enc_outs, te_new = [], []
+    for e, te in enumerate(t_enc):
+        gate = enc_gates[e]
+        te = te + gate
+        ec12 = _bias_corrections(b1, b2, torch.clamp_min(te, 1.0))
+        enc_outs.append(_walk(
+            lambda *leaves, _c=ec12, _g=gate: op(_c, _g, *leaves),
+            [tree["encoders"][e] for tree in trees], n_out))
+        te_new.append(te)
+    for i, out in enumerate(outs):
+        out["encoders"] = [eo[i] for eo in enc_outs]
+    return outs, t_new, te_new
+
+
+class Optimizer:
+    """``init(params) -> state`` and ``update(grads, state, params=None,
+    enc_gates=None) -> (updates, state)``; ``core.step.gated_update`` adds
+    the updates to the parameters. An optimizer that writes the parameters
+    itself also has ``fused_apply``."""
+
+    def init(self, params: dict) -> dict:
+        raise NotImplementedError
+
+    def update(self, grads, state, params=None, enc_gates=None):
+        raise NotImplementedError
+
+
+class Adam(Optimizer):
+    """``torch.optim.Adam`` with per-encoder-group structural skip (module
+    docstring); with no skip its math is torch's: bias-corrected moments,
+    eps outside the square root."""
+
+    def __init__(self, learning_rate: float,
+                 betas: Tuple[float, float] = (0.9, 0.999),
+                 eps: float = 1e-8):
+        self.lr, (self.b1, self.b2), self.eps = learning_rate, betas, eps
+
+    def init(self, params):
+        t, t_enc = _step_counts(params)
+        return {"m": tree_map(torch.zeros_like, params),
+                "v": tree_map(torch.zeros_like, params),
+                "t": t, "t_enc": t_enc}
+
+    def _leaf(self, c12, gate, g, m, v):
+        lr, b1, b2, eps = self.lr, self.b1, self.b2, self.eps
+        c1, c2 = c12[0], c12[1]
+        if gate is None:
+            m_new = b1 * m + (1 - b1) * g
+            v_new = b2 * v + (1 - b2) * g * g
+            upd = -lr * (m_new / c1) / (torch.sqrt(v_new / c2) + eps)
+        else:
+            # m + gate*(1-b1)*(g-m) == gate ? b1*m + (1-b1)*g : m
+            m_new = m + gate * (1 - b1) * (g - m)
+            v_new = v + gate * (1 - b2) * (g * g - v)
+            upd = -lr * gate * (m_new / c1) / (torch.sqrt(v_new / c2) + eps)
+        return upd, m_new, v_new
+
+    def update(self, grads, state, params=None, enc_gates=None):
+        (upd, m, v), t, t_enc = _drive(
+            self.b1, self.b2, state, enc_gates, self._leaf,
+            [grads, state["m"], state["v"]], 3)
+        return upd, {"m": m, "v": v, "t": t, "t_enc": t_enc}
+
+
+class Adam8bit(Optimizer):
+    """Adam with 8-bit blockwise-quantized moments (``ops/fused_adam.py``):
+    per leaf, ``float8_e4m3fn`` (``fmt='fp8'``, the default) or ``int8``
+    codes plus one float32 scale per row, about 2 bytes of state per
+    parameter against fp32 Adam's 8. Not torch-exact: quantization error
+    enters through the moment history (the first step is exact). The
+    structural skip is ``Adam``'s.
+
+    ``fused_apply`` updates every leaf in place through
+    ``fused_adam.leaf_update``: the hand-written kernel on a CUDA model,
+    gated or not, and its plain version on a CPU model. ``update`` returns
+    the updates without touching the parameters (the same math in plain
+    PyTorch, for callers that apply updates themselves)."""
+
+    def __init__(self, learning_rate: float,
+                 betas: Tuple[float, float] = (0.9, 0.999),
+                 eps: float = 1e-8, fmt: str = "fp8"):
+        if fmt not in fa.FMT_CODES:
+            raise ValueError(f"fmt must be 'fp8' or 'int8', got {fmt!r}")
+        self.lr, (self.b1, self.b2), self.eps = learning_rate, betas, eps
+        self.fmt = fmt
+
+    def init(self, params):
+        t, t_enc = _step_counts(params)
+        qdt = fa.code_dtype(self.fmt)
+
+        def codes(p):
+            return torch.zeros(p.shape, dtype=qdt, device=p.device)
+
+        def scales(p):
+            return torch.zeros(fa.scale_shape(tuple(p.shape)),
+                               device=p.device)
+
+        return {"mq": tree_map(codes, params), "ms": tree_map(scales, params),
+                "vq": tree_map(codes, params), "vs": tree_map(scales, params),
+                "t": t, "t_enc": t_enc}
+
+    def _trees(self, state):
+        return [state[k] for k in ("mq", "ms", "vq", "vs")]
+
+    def update(self, grads, state, params=None, enc_gates=None):
+        def op(c12, gate, g, mq, ms, vq, vs):
+            return fa.moment_update(g, mq, ms, vq, vs, c12[0], c12[1],
+                                    self.lr, self.b1, self.b2, self.eps,
+                                    gate=gate, fmt=self.fmt)
+
+        (upd, mq, ms, vq, vs), t, t_enc = _drive(
+            self.b1, self.b2, state, enc_gates, op,
+            [grads] + self._trees(state), 5)
+        return upd, {"mq": mq, "ms": ms, "vq": vq, "vs": vs, "t": t,
+                     "t_enc": t_enc}
+
+    def fused_apply(self, grads, state, params, enc_gates=None):
+        """Update ``params`` and the moment codes and scales in place;
+        returns the state with the new step counts."""
+        def op(c12, gate, p, g, mq, ms, vq, vs):
+            fa.leaf_update(p, g.contiguous(), mq, ms, vq, vs, c12,
+                           lr=self.lr, b1=self.b1, b2=self.b2, eps=self.eps,
+                           gate=gate, fmt=self.fmt)
+            return ()
+
+        _, t, t_enc = _drive(self.b1, self.b2, state, enc_gates, op,
+                             [params, grads] + self._trees(state), 0)
+        return dict(state, t=t, t_enc=t_enc)

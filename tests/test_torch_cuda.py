@@ -1,4 +1,5 @@
-"""The fused-chain CUDA kernel against its plain PyTorch version, on a GPU.
+"""The CUDA kernels against their plain PyTorch versions, on a GPU: the
+fused chain (K1) and the fused 8-bit Adam update (K2).
 
 Every test here carries the ``cuda`` marker and skips without a GPU. The
 file imports neither JAX nor the JAX package, so it runs on a GPU machine
@@ -10,15 +11,20 @@ Tolerance: the kernel sums each dot product with fp32 FMAs in k order and
 cuBLAS's fp32 GEMM in its own order; over K <= 1074 that moves a sum by
 ~1e-6, carried through up to 4 chained encoders and 3 decoder layers.
 atol 1e-4 leaves ~100x headroom and still catches indexing or masking
-faults, which give O(0.1) errors.
+faults, which give O(0.1) errors. The Adam kernel rounds every float32
+operation on its own in the plain version's order, so its parameters, codes
+and scales must be bit-equal.
 """
 import numpy as np
 import pytest
 import torch
 
-from multimodn_tpu_torch import MultiModN
+from multimodn_tpu_torch import Adam8bit, MultiModN
 from multimodn_tpu_torch import decoders as tdec
 from multimodn_tpu_torch import encoders as tenc
+from multimodn_tpu_torch.core.tree import tree_leaves
+from multimodn_tpu_torch.data import ArrayLoader, PartitionDataset
+from multimodn_tpu_torch.ops import fused_adam as fa
 from multimodn_tpu_torch.ops import fused_chain as fc
 
 ATOL = 1e-4
@@ -124,3 +130,119 @@ def test_wrapper_rejects_bad_inputs_on_cuda(cuda):
     with pytest.raises(ValueError, match="is on"):
         fc.fused_chain_forward(spec, model.params, [data[0].cpu(), data[1]],
                                valid, init)
+
+
+LR, B1, B2, EPS = 1e-3, 0.9, 0.999, 1e-8
+
+
+def _adam_leaf(shape, fmt, device, seed):
+    """A leaf after two plain steps from zero moments, a fresh gradient
+    whose rows mix magnitudes, and the third step's bias corrections."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def grad():
+        g = torch.randn(shape, generator=gen, device=device)
+        if len(shape) >= 1:
+            g[..., ::2] *= 1e-4
+        return g
+
+    qdt = fa.code_dtype(fmt)
+    p = torch.randn(shape, generator=gen, device=device)
+    mq = torch.zeros(shape, dtype=qdt, device=device)
+    vq = torch.zeros(shape, dtype=qdt, device=device)
+    ms = torch.zeros(fa.scale_shape(shape), device=device)
+    vs = torch.zeros(fa.scale_shape(shape), device=device)
+    for t in (1, 2):
+        c = torch.tensor([1 - B1 ** t, 1 - B2 ** t], device=device)
+        p, mq, ms, vq, vs = fa.leaf_update_ref(p, grad(), mq, ms, vq, vs,
+                                               c[0], c[1], LR, B1, B2, EPS,
+                                               fmt=fmt)
+    c12 = torch.tensor([1 - B1 ** 3, 1 - B2 ** 3], device=device)
+    return [p, grad(), mq, ms, vq, vs, c12]
+
+
+def _bits(t):
+    return t.view(torch.uint8) if t.element_size() == 1 else \
+        t.view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["fp8", "int8"])
+@pytest.mark.parametrize("gate", [None, 0.0, 1.0])
+@pytest.mark.parametrize("shape", [(1074, 32), (32,), (1, 50), (),
+                                   (3, 10, 7), (65536,), (130, 1500)])
+def test_fused_adam_kernel_matches_plain_bit_for_bit(cuda, fmt, gate, shape):
+    """Warp-per-row leaves (cols <= 1024), block-per-row leaves (a wide
+    1-D leaf, several wide rows), 0-D and 3-D leaves."""
+    p, g, mq, ms, vq, vs, c12 = _adam_leaf(shape, fmt, cuda, len(shape))
+    gate_t = None if gate is None else torch.tensor(gate, device=cuda)
+    want = fa.leaf_update_ref(p, g, mq, ms, vq, vs, c12[0], c12[1], LR, B1,
+                              B2, EPS, gate=gate_t, fmt=fmt)
+    got = [t.clone() for t in (p, mq, ms, vq, vs)]
+    before = fa.FUSED_ADAM.launches
+    fa.leaf_update(got[0], g, *got[1:], c12, lr=LR, b1=B1, b2=B2, eps=EPS,
+                   gate=gate_t, fmt=fmt)
+    torch.cuda.synchronize()
+    assert fa.FUSED_ADAM.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+def test_fused_adam_nan_gradient_poisons_its_row(cuda):
+    p, g, mq, ms, vq, vs, c12 = _adam_leaf((4, 40), "fp8", cuda, 0)
+    g[2, 5] = float("nan")
+    fa.leaf_update(p, g, mq, ms, vq, vs, c12, lr=LR, b1=B1, b2=B2, eps=EPS)
+    torch.cuda.synchronize()
+    assert torch.isnan(ms[2, 0]) and torch.isfinite(ms[[0, 1, 3], 0]).all()
+
+
+@pytest.mark.cuda
+def test_fused_adam_wrapper_rejects_bad_leaves_on_cuda(cuda):
+    p, g, mq, ms, vq, vs, c12 = _adam_leaf((8, 16), "fp8", cuda, 0)
+    before = fa.FUSED_ADAM.launches
+    with pytest.raises(ValueError, match="is on"):
+        fa.leaf_update(p, g.cpu(), mq, ms, vq, vs, c12, lr=LR, b1=B1, b2=B2,
+                       eps=EPS)
+    with pytest.raises(ValueError, match="is on"):
+        fa.leaf_update(p, g, mq, ms, vq, vs, c12.cpu(), lr=LR, b1=B1, b2=B2,
+                       eps=EPS)
+    with pytest.raises(TypeError, match="mq must be"):
+        fa.leaf_update(p, g, mq.view(torch.int8), ms, vq, vs, c12, lr=LR,
+                       b1=B1, b2=B2, eps=EPS)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.leaf_update(p.t(), g.t(), mq, ms, vq, vs, c12, lr=LR, b1=B1,
+                       b2=B2, eps=EPS)
+    assert fa.FUSED_ADAM.launches == before
+
+
+@pytest.mark.cuda
+def test_training_step_on_cuda_matches_cpu_model(cuda):
+    """The same weights take one Adam8bit step on the same batch on both
+    devices (dropout off): the card through both kernels' paths, the CPU
+    through the plain versions. cuBLAS and the CPU sum each product in
+    another order; after one step the parameters agree within 2 lr (a
+    near-zero gradient may round to the other sign) and almost all within
+    1e-6."""
+    def model(device):
+        return MultiModN(
+            50, [tenc.MIMICMLPEncoder(50, w, (32, 32), 0.0)
+                 for w in (10, 1024, 768, 99)],
+            [tdec.MLPDecoder(50, (32, 32), 2) for _ in range(2)], 1.0, 0.0,
+            seed=4, device=device)
+    gpu, cpu = model(cuda), model("cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(16, 1901)).astype(np.float32)
+    X[::4, 10:1034] = np.nan
+    y = (X[:, :2] > 0).astype(np.int64)
+    ds = PartitionDataset(X, y, [10, 1024, 768, 99])
+    before = fa.FUSED_ADAM.launches
+    for m in (gpu, cpu):
+        m.train_epoch(ArrayLoader(ds, 16), Adam8bit(LR), "cross_entropy")
+    torch.cuda.synchronize()
+    assert fa.FUSED_ADAM.launches == before + 37
+    diffs = np.concatenate([np.abs(a - b).reshape(-1) for a, b in zip(
+        tree_leaves(gpu.state_dict()), tree_leaves(cpu.state_dict()))])
+    assert diffs.max() <= 2 * LR
+    assert np.mean(diffs > 1e-6) < 1e-3

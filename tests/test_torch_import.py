@@ -1,5 +1,6 @@
-"""The port stands alone: it imports without JAX and without the JAX
-package, and its entry points never move work to the CPU unasked."""
+"""The port stands alone: it imports and trains without JAX, without the
+JAX package and without pandas, and its entry points never move work to the
+CPU unasked."""
 import os
 import subprocess
 import sys
@@ -36,8 +37,53 @@ def test_imports_without_jax_or_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    # core, encoders, decoders, ops and their modules, model, serving, ...
-    assert int(proc.stdout.strip()) >= 15
+    # core, encoders, decoders, data, ops and their modules, model, optim,
+    # serving, ...
+    assert int(proc.stdout.strip()) >= 25
+
+
+def test_cpu_training_needs_neither_jax_nor_pandas():
+    """Importing every module and training on the CPU (train_epoch with
+    Adam8bit, fit_best with Adam, test) loads no JAX, nothing of the JAX
+    package and no pandas, and builds no kernel."""
+    script = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None
+        sys.modules["pandas"] = None       # any `import pandas` now fails
+        import numpy as np
+        import multimodn_tpu_torch as pkg
+        for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+            importlib.import_module(m.name)
+        from multimodn_tpu_torch import encoders, decoders
+        from multimodn_tpu_torch.data import ArrayLoader, PartitionDataset
+        from multimodn_tpu_torch.ops import fused_adam
+        rng = np.random.default_rng(0)
+        X = rng.normal(size=(40, 7)).astype(np.float32)
+        X[::5, :3] = np.nan
+        y = (X[:, 4] > 0).astype(np.int64)
+        loader = ArrayLoader(PartitionDataset(X, y, [3, 4]), 16)
+        model = pkg.MultiModN(
+            4, [encoders.MIMICMLPEncoder(4, w, (5,)) for w in (3, 4)],
+            [decoders.MLPDecoder(4, (5,), 2)], 1.0, 0.1, device="cpu")
+        hist = pkg.MultiModNHistory(["y"])
+        model.train_epoch(loader, pkg.Adam8bit(0.01), "cross_entropy", hist)
+        best = model.fit_best(loader, pkg.Adam(0.01), epochs=2,
+                              val_loader=loader, history=hist)
+        res = model.test(loader, history=hist)
+        assert np.isfinite(hist.loss["train"][-1]).all(), hist.loss
+        assert best["epochs_ran"] == 2 and len(res) == 1
+        assert fused_adam.FUSED_ADAM._lib is None
+        leaked = sorted(k for k in sys.modules
+                        if k == "multimodn_tpu"
+                        or k.startswith("multimodn_tpu."))
+        assert not leaked, leaked
+        assert sys.modules["jax"] is None and sys.modules["pandas"] is None
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
 
 
 @pytest.fixture()
@@ -59,6 +105,8 @@ def test_entry_points_refuse_to_default_to_cpu(no_cuda, tmp_path):
         tmm.load_model(str(tmp_path))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tmm.params_from_jax(model.state_dict())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tmm.opt_state_from_jax(tmm.Adam(0.1).init(model.params))
     assert tmm.load_model(str(tmp_path), device="cpu").device.type == "cpu"
 
 
