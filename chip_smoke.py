@@ -7,30 +7,41 @@ Phases, each fatal on failure:
 
 1. the card's name and power limit, torch and CUDA versions; TF32 off;
 2. build the fused-chain kernel from ``multimodn_tpu_torch/csrc``;
-3. the kernel against its plain PyTorch version at the MIMIC multi-task
-   model (B = 1, 16, 1000, 65536, ~30% of modality cells invalid) and at a
-   small last-concat model with gelu/tanh encoders and softmax heads: max
-   abs error, kernel and plain times (CUDA events), and the bound;
+3. the fused chain (Stage A and Stage B) against its plain PyTorch
+   version at the MIMIC multi-task model (B = 1, 16, 33, 1000, 65536, ~30%
+   of modality cells invalid) and at a small last-concat model with
+   gelu/tanh encoders and softmax heads: max abs error, kernel and plain
+   times (CUDA events), launches per call, the bound, Stage A's blocks, at
+   B = 16 and 65536 each stage's device time (``torch.profiler``), and at
+   B = 65536 Stage B on its small tiles too;
 4. serving: a seeded MIMIC model goes through ``export_model`` ->
    ``load_model`` and answers 8 requests of batch 16 (some with NaN rows)
    through ``fused_forward``; each answer is checked against the plain
    chain, ``InferenceSession`` must reproduce its state rows, and the
-   kernel's launch count must equal the number of requests;
-5. the fused 8-bit Adam kernel against its plain PyTorch version on every
-   leaf shape of the MIMIC model and at (4096, 1024), (65536,) and a 0-D
-   leaf, both code formats, ungated and with gate 0 and 1, from moments of
-   a few prior steps: parameters, codes and scales must be bit-equal; the
-   kernel's and the plain version's times (CUDA events) and the bound;
+   kernels' launch count must equal the requests times the plan's launches
+   per request (2 at MIMIC width);
+5. the fused 8-bit Adam kernel against its plain PyTorch version through
+   ``multi_leaf_update``: every leaf shape of the MIMIC model and (4096,
+   1024), (65536,) and a 0-D leaf in one call per code format and gate
+   (none, 0, 1), a call mixing three groups with their own bias
+   corrections and gates, and a NaN in a row split across blocks, from
+   moments of a few prior steps: parameters, codes and scales must be
+   bit-equal (a NaN equals a NaN); the kernel's and the plain version's
+   times (CUDA events), launches per update, the bound, and the kernel's
+   time with each lane layout (one run of 4 elements per lane, or up to
+   four);
 6. training at full width: ``fit_best`` with ``Adam8bit`` for 3 epochs of
    batch 16 on seeded synthetic MIMIC-width data (30% of modality cells
    missing), then ``test``; every loss finite, the third epoch's training
-   loss below the first's, and the fused Adam kernel launched once per
-   parameter leaf per step; the same run with ``Adam`` is timed beside it,
+   loss below the first's, and the fused Adam kernel launched as often per
+   step as its leaf table says (once at MIMIC width); the same run with
+   ``Adam`` is timed beside it,
    and ``torch.profiler`` splits a few steps into device and host time;
 7. the card against the CPU: the same weights take 3 ``Adam8bit`` steps on
    the same batches on both devices and must agree;
-8. one ``{"kernels": [...]}`` line, the card's line, and last the
-   ``{"ok": true, ...}`` line.
+8. the earlier designs' times from PERF.md on a line of their own, one
+   ``{"kernels": [...]}`` line of this run's numbers, the card's line, and
+   last the ``{"ok": true, ...}`` line.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
@@ -64,7 +75,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # MIMIC multi-task model at the defaults of pipelines/mimic/common.py.
 MIMIC_STATE, MIMIC_WIDTHS, MIMIC_HIDDEN, MIMIC_TARGETS = 50, (10, 1024, 768,
                                                               99), 32, 2
-KERNEL_BATCHES = (1, 16, 1000, 65536)
+KERNEL_BATCHES = (1, 16, 33, 1000, 65536)
 SERVING_REQUESTS, SERVING_BATCH = 8, 16
 # The kernel sums each dot product with fp32 FMAs in k order; cuBLAS's fp32
 # GEMM sums in another order. Over K <= 1074 that moves each sum by ~1e-6,
@@ -77,6 +88,16 @@ TOL_REASON = ("fp32 FMA in k order vs cuBLAS fp32 GEMM order, K <= 1074, "
 # H100 SXM data-sheet peaks: fp32 on the CUDA cores (the kernel's math is
 # FFMA) and HBM3 bandwidth.
 PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+# The earlier designs' times (ms; one single-kernel chain, one launch per
+# Adam leaf) from this script's final run before the redesign, as PERF.md
+# section 6 keeps them; printed for comparison, not measured in this run.
+EARLIER = {"source": "PERF.md section 6, this script before the redesign, "
+                     "NVIDIA H100 80GB HBM3, 700.00 W; not measured in "
+                     "this run",
+           "fused_chain_ms": {"16": 0.2749, "65536": 2.1118},
+           "fused_adam_ms": {"mimic_step": 0.1378, "mimic_step_int8": 0.1380,
+                             "4096x1024": 0.0625, "65536": 0.1411,
+                             "0-D": 0.0033}}
 
 # The fused Adam kernel: the MIMIC protocol's optimizer settings, the extra
 # leaf shapes (one past the 50 MB L2, a wide 1-D leaf, a 0-D leaf), and the
@@ -133,7 +154,19 @@ def small_model(device):
     return MultiModN(S, encoders, decoders, 1.0, 0.0, seed=1, device=device)
 
 
-def time_ms(fn, reps=20, groups=5) -> float:
+TIMED_REPS, TIMED_GROUPS = 20, 5
+TIMED_CALLS = 1 + TIMED_REPS * TIMED_GROUPS
+
+
+def time_counted(fn, kernel):
+    """``time_ms(fn)`` and the launches per call that ``kernel``'s counter
+    saw during the timed calls."""
+    before = kernel.launches
+    ms = time_ms(fn)
+    return ms, (kernel.launches - before) / TIMED_CALLS
+
+
+def time_ms(fn, reps=TIMED_REPS, groups=TIMED_GROUPS) -> float:
     """Median over groups of the mean device time of one call (CUDA
     events). A sleep kernel first lets the host queue the group's launches
     ahead of the device, so small calls time the device, not the enqueue."""
@@ -194,12 +227,35 @@ def kernel_inputs(spec: ChainSpec, B: int, gen):
     return data, valid
 
 
+def stage_times(fn, calls=20):
+    """Device time per call of each of K1's kernels (``torch.profiler``
+    over ``calls`` calls), or None where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for kernel in ("stage_a_gemm", "chain_kernel", "row_softmax"):
+            if kernel in e.key and e.self_device_time_total > 0:
+                out[kernel] = out.get(kernel, 0.0) + \
+                    e.self_device_time_total / 1e3 / calls
+    return out or None
+
+
 def check_kernel(name, model, batches, gen):
     """Kernel against plain at each B; returns per-B records."""
     spec = ChainSpec(model.encoders, model.decoders, model.state_size)
     params = model.params
-    weights = spec.flatten_params(params)
+    layers = spec.layer_params(params)
     init_row = model.params["init_state"]["value"][0].contiguous()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     records = {}
     for B in batches:
         data, valid = kernel_inputs(spec, B, gen)
@@ -209,22 +265,50 @@ def check_kernel(name, model, batches, gen):
         err = max_err(got, want)
         finite = all(torch.isfinite(t).all().item()
                      for t in [got[0], *got[1]])
-        ms = time_ms(lambda: FUSED_CHAIN.launch(spec, weights, data, valid,
-                                                init_row))
+
+        def kernel(large_tiles=True):
+            FUSED_CHAIN.launch(spec, layers, data, valid, init_row,
+                               large_tiles=large_tiles)
+
+        ms, launches = time_counted(kernel, FUSED_CHAIN)
         plain_ms = time_ms(lambda: fused_chain_forward_ref(
             spec, params, data, valid, init_row))
         bound_ms, bound_by, flops, nbytes = bound(spec, B)
-        records[B] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by,
-                      "flops": flops, "bytes": nbytes}
+        # Each Stage A launch's GEMM blocks and the copy blocks of the
+        # state-path weights, as the wrapper launches them.
+        stage_a_blocks = [blocks for _i, _r, blocks in
+                          spec.stage_a_plan(B, n_sm)[0]]
+        copy_blocks = [blocks for _c, _r, blocks in spec.copy_groups]
+        stages = stage_times(kernel) if B in (SERVING_BATCH, 65536) \
+            else None
+        records[B] = {"max_abs_err": err, "ms": ms, "launches": launches,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+                      "stage_ms": stages}
+        if B == 65536:
+            records[B]["small_tiles_ms"] = time_ms(
+                lambda: kernel(large_tiles=False))
         log(f"  {name} B={B}: max_abs_err={err:.3e} (tol {TOL:g}) "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bound_ms:.5f} ms ({bound_by}; {flops:.4g} FLOP, "
-            f"{nbytes:.4g} B), {bound_ms / ms:.2%} of bound")
+            f"kernel {ms:.4f} ms in {launches:g} launches, plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}; "
+            f"{flops:.4g} FLOP, {nbytes:.4g} B), {bound_ms / ms:.2%} of "
+            f"bound; Stage A GEMM blocks per launch {stage_a_blocks}, copy "
+            f"blocks {copy_blocks}"
+            + (f"; device ms per kernel {json.dumps(stages)}"
+               if stages is not None else "")
+            + (f"; Stage B on 16-row tiles: kernel "
+               f"{records[B]['small_tiles_ms']:.4f} ms" if B == 65536
+               else ""))
         if not finite or not err <= TOL:
             raise AssertionError(
                 f"{name} B={B}: kernel disagrees with the plain version "
                 f"(max abs err {err}, finite={finite})")
+        if B == SERVING_BATCH and name == "mimic" and \
+                not stage_a_blocks[0] > 1:
+            raise AssertionError("Stage A runs on one block at B=16")
+        if launches != spec.launches:
+            raise AssertionError(f"{name} B={B}: {launches} launches per "
+                                 f"call, the plan gives {spec.launches}")
         del data, valid, got, want
     return records
 
@@ -269,12 +353,16 @@ def serve(device):
         latencies.append(1e3 * (time.perf_counter() - t0))
         answers.append((states, outs))
     launches = FUSED_CHAIN.launches
-    log(f"  {len(requests)} requests: K1 launches {launches}; request "
+    per_request = ChainSpec(model.encoders, model.decoders,
+                            model.state_size).launches
+    log(f"  {len(requests)} requests: K1 launches {launches} "
+        f"({per_request} per request: Stage A, Stage B); request "
         f"latency (host clock, first call included) ms: "
         + ", ".join(f"{t:.3f}" for t in latencies))
-    if launches != len(requests):
+    if launches != per_request * len(requests):
         raise AssertionError(f"K1 launched {launches} times for "
-                             f"{len(requests)} fused_forward calls")
+                             f"{len(requests)} fused_forward calls of "
+                             f"{per_request} launches")
 
     err_chain = err_session = 0.0
     n_enc = len(model.encoders)
@@ -376,82 +464,130 @@ def adam_bound(shapes):
             "bytes" if t_bytes >= t_ops else "operations", nbytes)
 
 
-def check_adam_case(shape, fmt, gate_value, gen, device):
-    """One leaf through the kernel and the plain version on the same
+def _bits(t):
+    return t.view(torch.uint8) if t.element_size() == 1 else \
+        t.view(torch.int32)
+
+
+def check_adam_leaves(leaves, fmt):
+    """``leaves`` (``[p, g, mq, ms, vq, vs, c12, gate]`` each) through one
+    ``multi_leaf_update`` and through the plain version on the same
     inputs: returns (mismatching elements over p, codes and scales, max abs
-    error of p)."""
+    error of p, kernel launches). Two NaNs count as equal."""
     b1, b2 = ADAM_BETAS
-    leaf = adam_leaf(shape, fmt, gen, device)
-    p, g, mq, ms, vq, vs, c12 = leaf
-    gate = None if gate_value is None else \
-        torch.tensor(float(gate_value), device=device)
-    want = fa.leaf_update_ref(p, g, mq, ms, vq, vs, c12[0], c12[1], ADAM_LR,
-                              b1, b2, ADAM_EPS, gate=gate, fmt=fmt)
-    got = [t.clone() for t in (p, mq, ms, vq, vs)]
-    fa.leaf_update(got[0], g, got[1], got[2], got[3], got[4], c12,
-                   lr=ADAM_LR, b1=b1, b2=b2, eps=ADAM_EPS, gate=gate,
-                   fmt=fmt)
+    want = fa.multi_leaf_update_ref(leaves, lr=ADAM_LR, b1=b1, b2=b2,
+                                    eps=ADAM_EPS, fmt=fmt)
+    got = [[leaf[0].clone(), leaf[1]] + [t.clone() for t in leaf[2:6]]
+           + list(leaf[6:]) for leaf in leaves]
+    before = FUSED_ADAM.launches
+    fa.multi_leaf_update(got, lr=ADAM_LR, b1=b1, b2=b2, eps=ADAM_EPS,
+                         fmt=fmt)
     torch.cuda.synchronize()
-    bits = [t.view(torch.uint8) if t.element_size() == 1 else t.view(
-        torch.int32) for t in got + list(want)]
-    mismatches = sum(int((a != b).sum()) for a, b in zip(bits[:5], bits[5:]))
-    err = float(torch.nan_to_num((got[0] - want[0]).abs(),
-                                 nan=float("inf")).max()) if p.numel() \
-        else 0.0
-    return mismatches, err
+    launches = FUSED_ADAM.launches - before
+    mismatches, err = 0, 0.0
+    for leaf, w in zip(got, want):
+        for a, b in zip([leaf[0]] + leaf[2:6], w):
+            differ = _bits(a) != _bits(b)
+            if a.element_size() != 1:
+                differ &= ~(a.isnan() & b.isnan())
+            mismatches += int(differ.sum())
+        if leaf[0].numel():
+            err = max(err, float(torch.nan_to_num(
+                (leaf[0] - w[0]).abs(), nan=float("inf")).max()))
+    return mismatches, err, launches
 
 
 def time_adam(shapes, fmt, gen, device):
     """Kernel and plain times of one update of every leaf in ``shapes``
-    (one launch per leaf), CUDA events."""
+    (one ``multi_leaf_update``), CUDA events, with the launches per update
+    counted; and the kernel's times with one run of 4 elements per lane
+    everywhere and with up to four runs wherever a row fits a block (the
+    wrapper picks per leaf by the card's SM count)."""
     b1, b2 = ADAM_BETAS
-    leaves = [adam_leaf(s, fmt, gen, device, prior_steps=1) for s in shapes]
+    leaves = [tuple(adam_leaf(s, fmt, gen, device, prior_steps=1)) + (None,)
+              for s in shapes]
+    shapes = tuple(tuple(s) for s in shapes)
 
-    def kernel():
-        for p, g, mq, ms, vq, vs, c12 in leaves:
-            FUSED_ADAM.launch(p, g, mq, ms, vq, vs, c12, None, lr=ADAM_LR,
-                              b1=b1, b2=b2, eps=ADAM_EPS, fmt=fmt)
+    def kernel(busy_blocks=None):
+        FUSED_ADAM.launch(leaves, shapes, lr=ADAM_LR, b1=b1, b2=b2,
+                          eps=ADAM_EPS, fmt=fmt, busy_blocks=busy_blocks)
 
     def plain():
-        for p, g, mq, ms, vq, vs, c12 in leaves:
-            fa.leaf_update_ref(p, g, mq, ms, vq, vs, c12[0], c12[1],
-                               ADAM_LR, b1, b2, ADAM_EPS, fmt=fmt)
+        fa.multi_leaf_update_ref(leaves, lr=ADAM_LR, b1=b1, b2=b2,
+                                 eps=ADAM_EPS, fmt=fmt)
 
     bound_ms, bound_by, nbytes = adam_bound(shapes)
-    return {"ms": time_ms(kernel), "plain_ms": time_ms(plain),
-            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
+    ms, launches = time_counted(kernel, FUSED_ADAM)
+    if launches != fa.launches_per_update(shapes):
+        raise AssertionError(f"fused_adam: {launches} launches per update "
+                             f"of {len(shapes)} leaves")
+    return {"ms": ms, "launches": launches, "plain_ms": time_ms(plain),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            # More busy blocks than any leaf fills: one run per lane; none:
+            # up to four runs.
+            "one_run_per_lane_ms": time_ms(lambda: kernel(2 ** 30)),
+            "four_runs_per_lane_ms": time_ms(lambda: kernel(0))}
 
 
 def check_adam(device, gen):
-    """Phase 5: every case bit-equal, then times at the MIMIC leaves (one
-    optimizer step, 37 launches) and at each extra shape."""
+    """Phase 5: every case bit-equal through the multi-leaf path (all leaf
+    shapes of one format and gate in one call), a call mixing groups with
+    their own bias corrections and gates, and a NaN in a split row; then
+    times at the MIMIC leaves (one optimizer step) and each extra shape."""
+    b1, b2 = ADAM_BETAS
     shapes = [tuple(t.shape) for t in tree_leaves(mimic_model(device).params)]
     cases = sorted(set(shapes)) + list(ADAM_EXTRA_SHAPES)
     worst_err, total_bad = 0.0, 0
+
+    def report(what, bad, err, launches):
+        nonlocal worst_err, total_bad
+        worst_err, total_bad = max(worst_err, err), total_bad + bad
+        log(f"  {what}: {bad} mismatching elements, max abs err of p "
+            f"{err:.3e}, {launches} launches")
+        if bad > 0:
+            raise AssertionError(
+                f"fused_adam disagrees with the plain version ({what}): "
+                f"{bad} elements of p, codes or scales differ")
+
     for fmt in ("fp8", "int8"):
         for gate in (None, 0.0, 1.0):
-            bad, err = zip(*(check_adam_case(s, fmt, gate, gen, device)
-                             for s in cases))
-            worst_err, total_bad = max(worst_err, *err), total_bad + sum(bad)
-            log(f"  fmt={fmt} gate={gate}: {len(cases)} leaf shapes, "
-                f"{sum(bad)} mismatching elements, max abs err of p "
-                f"{max(err):.3e}")
-            if sum(bad) > 0:
-                raise AssertionError(
-                    f"fused_adam disagrees with the plain version (fmt={fmt}"
-                    f", gate={gate}): {sum(bad)} elements of p, codes or "
-                    f"scales differ, max abs err of p {max(err)}")
+            g = None if gate is None else torch.tensor(gate, device=device)
+            leaves = [adam_leaf(s, fmt, gen, device) + [g] for s in cases]
+            report(f"fmt={fmt} gate={gate}, {len(cases)} leaf shapes",
+                   *check_adam_leaves(leaves, fmt))
+        # Three groups in one call, each with its own step count and gate,
+        # as an optimizer step with per-encoder groups makes them.
+        gates = [None, torch.tensor(1.0, device=device),
+                 torch.tensor(0.0, device=device)]
+        leaves = []
+        for i, s in enumerate(shapes + [(4096, 1024), (65536,)]):
+            leaf = adam_leaf(s, fmt, gen, device, prior_steps=1 + i % 3)
+            leaves.append(leaf + [gates[i % 3]])
+        report(f"fmt={fmt} mixed groups, {len(leaves)} leaves",
+               *check_adam_leaves(leaves, fmt))
+        # A NaN in a row split across blocks poisons that row only.
+        leaf = adam_leaf((2, 65536), fmt, gen, device) + [None]
+        leaf[1][1, 40000] = float("nan")
+        bad, err, launches = check_adam_leaves([leaf], fmt)
+        report(f"fmt={fmt} NaN in a split (2, 65536) row", bad, 0.0,
+               launches)
+
     times = {"mimic_step": time_adam(shapes, "fp8", gen, device)}
     for s in ADAM_EXTRA_SHAPES:
         times["x".join(map(str, s)) or "0-D"] = time_adam([s], "fp8", gen,
                                                          device)
     times["mimic_step_int8"] = time_adam(shapes, "int8", gen, device)
     for name, r in times.items():
-        log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-            f"ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}; "
-            f"{r['bytes']:.4g} B), {r['bound_ms'] / r['ms']:.2%} of bound")
+        log(f"  {name}: kernel {r['ms']:.4f} ms in {r['launches']:g} "
+            f"launches, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']}; {r['bytes']:.4g} B), "
+            f"{r['bound_ms'] / r['ms']:.2%} of bound; lanes: one run each "
+            f"{r['one_run_per_lane_ms']:.4f} ms, up to four runs "
+            f"{r['four_runs_per_lane_ms']:.4f} ms")
     return {"max_abs_err": worst_err, "mismatches": total_bad,
-            "n_leaves": len(shapes), "times": times}
+            "n_leaves": len(shapes),
+            "launches_per_step": fa.launches_per_update(shapes),
+            "times": times}
 
 
 def mimic_training_loaders(seed=0):
@@ -530,14 +666,15 @@ def check_training(device):
         if not all(np.isfinite(t["auc"]) for t in r["test"]):
             raise AssertionError(f"{name}: test gave a non-finite AUROC")
     r = runs["Adam8bit"]
-    n_leaves = len(tree_leaves(mimic_model(device).params))
-    if r["launches"] != n_leaves * r["steps"]:
+    shapes = [tuple(t.shape) for t in tree_leaves(mimic_model(device).params)]
+    per_step = fa.launches_per_update(shapes)
+    if r["launches"] != per_step * r["steps"]:
         raise AssertionError(
             f"fused_adam launched {r['launches']} times for {r['steps']} "
-            f"steps of {n_leaves} leaves")
-    log(f"  fused_adam launches {r['launches']} = {n_leaves} leaves x "
-        f"{r['steps']} steps; best epoch {r['best_epoch']}, score "
-        f"{r['best_score']:.4f}")
+            f"steps of {per_step} launches ({len(shapes)} leaves)")
+    log(f"  fused_adam launches {r['launches']} = {per_step} per step "
+        f"({len(shapes)} leaves) x {r['steps']} steps; best epoch "
+        f"{r['best_epoch']}, score {r['best_score']:.4f}")
     for name, run in runs.items():
         log(f"  {name}: {run['train_step_ms']:.3f} ms per training step, "
             f"{run['train_epoch_ms']:.1f} ms per training epoch "
@@ -680,9 +817,9 @@ def main() -> int:
         "library_ms": None,
         "batch": SERVING_BATCH,
         "serving": serving,
-        "by_batch": {str(B): {k: r[k] for k in ("max_abs_err", "ms",
-                                                "plain_ms", "bound_ms",
-                                                "bound_by")}
+        "by_batch": {str(B): {k: r[k] for k in (
+            "max_abs_err", "ms", "launches", "plain_ms", "bound_ms",
+            "bound_by", "stage_ms", "small_tiles_ms") if k in r}
                      for B, r in mimic.items()},
     }
     step = adam["times"]["mimic_step"]
@@ -695,7 +832,7 @@ def main() -> int:
         "max_abs_err": adam["max_abs_err"],
         "mismatches": adam["mismatches"],
         "tolerance": ADAM_TOL,
-        # One optimizer step of the MIMIC model: one launch per leaf.
+        # One optimizer step of the MIMIC model: all 37 leaves.
         "ms": step["ms"],
         "plain_ms": step["plain_ms"],
         "bound_ms": step["bound_ms"],
@@ -703,6 +840,7 @@ def main() -> int:
         # No PyTorch call computes an 8-bit quantized Adam update.
         "library_ms": None,
         "leaves_per_step": adam["n_leaves"],
+        "launches_per_step": adam["launches_per_step"],
         "steps": runs["Adam8bit"]["steps"],
         "by_shape": adam["times"],
         "training": {name: {k: r[k] for k in (
@@ -712,6 +850,8 @@ def main() -> int:
         "training_profile": profile,
         "device_vs_cpu_max_abs_err": device_err,
     }
+    log("earlier designs (not measured in this run): "
+        + json.dumps(EARLIER))
     log(json.dumps({"kernels": [entry, adam_entry]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

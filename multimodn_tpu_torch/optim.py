@@ -144,7 +144,7 @@ class Adam8bit(Optimizer):
     structural skip is ``Adam``'s.
 
     ``fused_apply`` updates every leaf in place through
-    ``fused_adam.leaf_update``: the hand-written kernel on a CUDA model,
+    ``fused_adam.multi_leaf_update``: the hand-written kernel on a CUDA model,
     gated or not, and its plain version on a CPU model. ``update`` returns
     the updates without touching the parameters (the same math in plain
     PyTorch, for callers that apply updates themselves)."""
@@ -189,13 +189,17 @@ class Adam8bit(Optimizer):
 
     def fused_apply(self, grads, state, params, enc_gates=None):
         """Update ``params`` and the moment codes and scales in place;
-        returns the state with the new step counts."""
+        returns the state with the new step counts. Every leaf goes into
+        one ``fused_adam.multi_leaf_update`` call: one kernel launch for the
+        whole step on a CUDA model."""
+        leaves = []
+
         def op(c12, gate, p, g, mq, ms, vq, vs):
-            fa.leaf_update(p, g.contiguous(), mq, ms, vq, vs, c12,
-                           lr=self.lr, b1=self.b1, b2=self.b2, eps=self.eps,
-                           gate=gate, fmt=self.fmt)
+            leaves.append((p, g.contiguous(), mq, ms, vq, vs, c12, gate))
             return ()
 
         _, t, t_enc = _drive(self.b1, self.b2, state, enc_gates, op,
                              [params, grads] + self._trees(state), 0)
+        fa.multi_leaf_update(leaves, lr=self.lr, b1=self.b1, b2=self.b2,
+                             eps=self.eps, fmt=self.fmt)
         return dict(state, t=t, t_enc=t_enc)

@@ -43,6 +43,20 @@ CASES = {
                      tenc.MLPEncoder(24, 13, ())],
         lambda: [tdec.ClassDecoder(24, 5, "softmax"),
                  tdec.MLPDecoder(24, (16,), 3, "softmax", "gelu")]),
+    # Softmax hidden layers in Stage A (a row pass after each GEMM).
+    "softmax_hidden": (8, lambda: [tenc.MLPEncoder(8, 6, (12, 10), "softmax"),
+                                   tenc.MLPEncoder(8, 9, (5,), "sigmoid")],
+                       lambda: [tdec.LogisticDecoder(8)]),
+    # 27 state-path layers: Stage A packs 24 with its GEMM, 3 in a launch
+    # of their own.
+    "many_layers": (8, lambda: [tenc.MIMICMLPEncoder(8, 3 + w, (8, 8, 8),
+                                                     0.0) for w in range(6)],
+                    lambda: [tdec.MLPDecoder(8, (8, 8), 2)]),
+    # State-path weights (~1.3 MB) that do not fit in shared memory: Stage
+    # B reads them through L2.
+    "wide_state": (256, lambda: [tenc.MIMICMLPEncoder(256, w, (256, 256))
+                                 for w in (40, 300)],
+                   lambda: [tdec.MLPDecoder(256, (256,), 3)]),
 }
 
 
@@ -66,24 +80,63 @@ def _close(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=ATOL)
 
 
+def _chain_inputs(model, B, device):
+    gen = torch.Generator(device=device).manual_seed(B)
+    data = [torch.randn((B, e.n_features), generator=gen, device=device)
+            for e in model.encoders]
+    valid = (torch.rand((B, len(data)), generator=gen, device=device)
+             >= 0.3).float()
+    return data, valid, model.params["init_state"]["value"][0].contiguous()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(CASES))
-@pytest.mark.parametrize("B", [1, 33, 1000])
+@pytest.mark.parametrize("B", [1, 16, 33, 1000])
 def test_kernel_matches_plain(cuda, case, B):
     model = _model(case, cuda)
     spec = fc.ChainSpec(model.encoders, model.decoders, model.state_size)
-    gen = torch.Generator(device=cuda).manual_seed(B)
-    data = [torch.randn((B, e.n_features), generator=gen, device=cuda)
-            for e in model.encoders]
-    valid = (torch.rand((B, len(data)), generator=gen, device=cuda)
-             >= 0.3).float()
-    init = model.params["init_state"]["value"][0].contiguous()
+    data, valid, init = _chain_inputs(model, B, cuda)
     before = fc.FUSED_CHAIN.launches
     got = fc.fused_chain_forward(spec, model.params, data, valid, init)
     want = fc.fused_chain_forward_ref(spec, model.params, data, valid, init)
     torch.cuda.synchronize()
-    assert fc.FUSED_CHAIN.launches == before + 1
+    assert fc.FUSED_CHAIN.launches == before + spec.launches
     _close(got, want)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_when_state_tiles_do_not_fit(cuda):
+    """Eight encoders at state 256: the tiles of all nine states do not fit
+    in shared memory, so Stage B runs every decoder after every encoder,
+    with the weights read through L2."""
+    model = MultiModN(256, [tenc.MIMICMLPEncoder(256, 20 + w, (256,))
+                            for w in range(8)],
+                      [tdec.MLPDecoder(256, (64,), 2)], 1.0, 0.0, seed=5,
+                      device=cuda)
+    spec = fc.ChainSpec(model.encoders, model.decoders, model.state_size)
+    data, valid, init = _chain_inputs(model, 40, cuda)
+    got = fc.fused_chain_forward(spec, model.params, data, valid, init)
+    want = fc.fused_chain_forward_ref(spec, model.params, data, valid, init)
+    torch.cuda.synchronize()
+    _close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [16, 20000])
+def test_kernel_is_deterministic(cuda, B):
+    """Two calls on the same input are bit-equal: Stage A's K splits write
+    separate partials that Stage B sums in a fixed order (B=16), and large
+    batches take 128-row tiles (B=20000)."""
+    model = _model("mimic", cuda)
+    spec = fc.ChainSpec(model.encoders, model.decoders, model.state_size)
+    data, valid, init = _chain_inputs(model, B, cuda)
+    a = fc.fused_chain_forward(spec, model.params, data, valid, init)
+    b = fc.fused_chain_forward(spec, model.params, data, valid, init)
+    want = fc.fused_chain_forward_ref(spec, model.params, data, valid, init)
+    torch.cuda.synchronize()
+    for x, y in zip([a[0], *a[1]], [b[0], *b[1]]):
+        assert torch.equal(x, y)
+    _close(a, want)
 
 
 @pytest.mark.cuda
@@ -172,8 +225,9 @@ def _bits(t):
 @pytest.mark.parametrize("shape", [(1074, 32), (32,), (1, 50), (),
                                    (3, 10, 7), (65536,), (130, 1500)])
 def test_fused_adam_kernel_matches_plain_bit_for_bit(cuda, fmt, gate, shape):
-    """Warp-per-row leaves (cols <= 1024), block-per-row leaves (a wide
-    1-D leaf, several wide rows), 0-D and 3-D leaves."""
+    """Narrow rows packed several to a warp, rows held by a whole block
+    (1500 columns), rows split across blocks (a wide 1-D leaf), 0-D and 3-D
+    leaves."""
     p, g, mq, ms, vq, vs, c12 = _adam_leaf(shape, fmt, cuda, len(shape))
     gate_t = None if gate is None else torch.tensor(gate, device=cuda)
     want = fa.leaf_update_ref(p, g, mq, ms, vq, vs, c12[0], c12[1], LR, B1,
@@ -183,9 +237,47 @@ def test_fused_adam_kernel_matches_plain_bit_for_bit(cuda, fmt, gate, shape):
     fa.leaf_update(got[0], g, *got[1:], c12, lr=LR, b1=B1, b2=B2, eps=EPS,
                    gate=gate_t, fmt=fmt)
     torch.cuda.synchronize()
-    assert fa.FUSED_ADAM.launches == before + 1
+    assert fa.FUSED_ADAM.launches == before + fa.launches_per_update([shape])
     for a, b in zip(got, want):
         assert torch.equal(_bits(a), _bits(b))
+
+
+def _same_or_both_nan(a, b):
+    """Bit-equal, where a NaN counts as equal to any NaN."""
+    if a.element_size() == 1:
+        return torch.equal(_bits(a), _bits(b))
+    return bool(((_bits(a) == _bits(b)) | (a.isnan() & b.isnan())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["fp8", "int8"])
+def test_multi_leaf_kernel_matches_plain_across_groups(cuda, fmt):
+    """One call over leaves of three groups, each with its own bias
+    corrections and gate (ungated, gate 1, gate 0), mixing narrow, wide and
+    split rows, a 0-D leaf and a NaN in a split row."""
+    shapes = [(50, 32), (32,), (1, 50), (), (4096, 33), (2, 9000), (7, 3, 5),
+              (65536,)]
+    leaves, c12s = [], [torch.tensor([1 - B1 ** t, 1 - B2 ** t], device=cuda)
+                        for t in (3, 5, 2)]
+    gates = [None, torch.tensor(1.0, device=cuda),
+             torch.tensor(0.0, device=cuda)]
+    for i, shape in enumerate(shapes):
+        p, g, mq, ms, vq, vs, _c = _adam_leaf(shape, fmt, cuda, 10 + i)
+        leaves.append((p, g, mq, ms, vq, vs, c12s[i % 3], gates[i % 3]))
+    leaves[5][1][1, 7000] = float("nan")
+    want = fa.multi_leaf_update_ref(leaves, lr=LR, b1=B1, b2=B2, eps=EPS,
+                                    fmt=fmt)
+    got = [(l[0].clone(), l[1], *[t.clone() for t in l[2:6]], *l[6:])
+           for l in leaves]
+    before = fa.FUSED_ADAM.launches
+    fa.multi_leaf_update(got, lr=LR, b1=B1, b2=B2, eps=EPS, fmt=fmt)
+    torch.cuda.synchronize()
+    assert fa.FUSED_ADAM.launches == before + 2   # a split row: two passes
+    assert fa.launches_per_update(shapes) == 2
+    for leaf, w in zip(got, want):
+        for a, b in zip((leaf[0],) + leaf[2:6], w):
+            assert _same_or_both_nan(a, b)
+    assert torch.isnan(got[5][3][1, 0]) and torch.isfinite(got[5][3][0, 0])
 
 
 @pytest.mark.cuda
@@ -241,7 +333,9 @@ def test_training_step_on_cuda_matches_cpu_model(cuda):
     for m in (gpu, cpu):
         m.train_epoch(ArrayLoader(ds, 16), Adam8bit(LR), "cross_entropy")
     torch.cuda.synchronize()
-    assert fa.FUSED_ADAM.launches == before + 37
+    shapes = [tuple(t.shape) for t in tree_leaves(gpu.params)]
+    assert len(shapes) == 37 and fa.launches_per_update(shapes) == 1
+    assert fa.FUSED_ADAM.launches == before + 1
     diffs = np.concatenate([np.abs(a - b).reshape(-1) for a, b in zip(
         tree_leaves(gpu.state_dict()), tree_leaves(cpu.state_dict()))])
     assert diffs.max() <= 2 * LR

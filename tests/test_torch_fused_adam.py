@@ -12,6 +12,8 @@ moved by one ulp can round to the neighbouring 8-bit code (``CODE_SHARE``).
 The hand-written kernel is held to the plain version bit for bit on the
 card (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
 """
+import math
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -246,3 +248,165 @@ def test_nan_gradient_poisons_its_row_only():
     ms = leaf[3].reshape(-1)
     assert torch.isnan(ms[2]) and torch.isfinite(ms[[0, 1, 3]]).all()
     assert torch.isnan(leaf[0][2, 3]) and torch.isfinite(leaf[0][0]).all()
+
+
+# ---------------------------------------------------------------------------
+# One update over many leaves
+# ---------------------------------------------------------------------------
+
+def _small_mimic_shapes():
+    """The 37 leaf shapes of the MIMIC model's structure at small widths:
+    4 first-concat encoders with two hidden layers, 2 MLP decoders, the
+    trainable init state."""
+    from multimodn_tpu_torch import MultiModN, decoders, encoders
+    from multimodn_tpu_torch.core.tree import tree_leaves
+    m = MultiModN(8, [encoders.MIMICMLPEncoder(8, w, (6, 6))
+                      for w in (3, 11, 7, 5)],
+                  [decoders.MLPDecoder(8, (6, 6), 2) for _ in range(2)],
+                  1.0, 0.0, device="cpu")
+    return [tuple(t.shape) for t in tree_leaves(m.params)]
+
+
+def _leaves(shapes, fmt, seed, nan=None):
+    """Leaves after one plain step, with per-group bias corrections and
+    gates: ungated, gate 1 and gate 0 in turn."""
+    rng = np.random.default_rng(seed)
+    c12s = [torch.tensor([1 - B1 ** t, 1 - B2 ** t], dtype=torch.float32)
+            for t in (2, 4, 3)]
+    gates = [None, torch.tensor(1.0), torch.tensor(0.0)]
+    leaves = []
+    for i, shape in enumerate(shapes):
+        p, g = (torch.from_numpy(_mixed(shape, int(rng.integers(1 << 30))))
+                for _ in "pg")
+        mq, ms, vq, vs = (t.clone() for t in _cpu_leaf(shape, fmt)[2:6])
+        new = ta.leaf_update_ref(p, torch.from_numpy(_mixed(shape, i)), mq,
+                                 ms, vq, vs, 1 - B1, 1 - B2, LR, B1, B2, EPS,
+                                 fmt=fmt)
+        p, mq, ms, vq, vs = new
+        leaves.append((p, g.clone(), mq, ms, vq, vs, c12s[i % 3],
+                       gates[i % 3]))
+    if nan is not None:
+        leaves[nan[0]][1].view(-1)[nan[1]] = float("nan")
+    return leaves
+
+
+@pytest.mark.parametrize("fmt", ["fp8", "int8"])
+def test_multi_leaf_update_equals_leaf_update_leaf_by_leaf(fmt):
+    shapes = _small_mimic_shapes()
+    assert len(shapes) == 37
+    leaves = _leaves(shapes, fmt, 5, nan=(19, 4))
+    one_by_one = [tuple(t.clone() if torch.is_tensor(t) else t for t in leaf)
+                  for leaf in leaves]
+    for leaf in one_by_one:
+        ta.leaf_update(*leaf[:7], lr=LR, b1=B1, b2=B2, eps=EPS,
+                       gate=leaf[7], fmt=fmt)
+    before = ta.FUSED_ADAM.launches
+    ta.multi_leaf_update(leaves, lr=LR, b1=B1, b2=B2, eps=EPS, fmt=fmt)
+    assert ta.FUSED_ADAM.launches == before and ta.FUSED_ADAM._lib is None
+    for a, b in zip(leaves, one_by_one):
+        for x, y in zip((a[0],) + a[2:6], (b[0],) + b[2:6]):
+            np.testing.assert_array_equal(_np(x).view(np.uint8),
+                                          _np(y).view(np.uint8))
+    # The NaN gradient poisoned its row's scales; a gate-0 leaf kept p.
+    assert torch.isnan(leaves[19][3].reshape(-1)[0])
+
+
+def test_multi_leaf_update_ref_is_the_loop_of_leaf_update_ref():
+    leaves = _leaves([(5, 6), (7,), ()], "fp8", 1)
+    got = ta.multi_leaf_update_ref(leaves, lr=LR, b1=B1, b2=B2, eps=EPS)
+    for leaf, new in zip(leaves, got):
+        want = ta.leaf_update_ref(*leaf[:6], leaf[6][0], leaf[6][1], LR, B1,
+                                  B2, EPS, gate=leaf[7])
+        for a, b in zip(new, want):
+            _same(a, b)
+
+
+def _kernel_cover(group):
+    """Which elements each pass of the kernel touches, read from the leaf
+    table with the kernel's index arithmetic: counts per (leaf, row,
+    column) for pass 1 (p and, for rows that fit a block, the codes) and
+    pass 2 (the codes of split rows), and the rows whose scales each pass
+    writes."""
+    from collections import Counter
+    geom = group.geom
+    cover = [Counter(), Counter()]
+    scales = [Counter(), Counter()]
+    for pass_, blocks in ((0, group.blocks), (1, group.blocks2)):
+        for blk in range(blocks):
+            first = geom[:, 3 + pass_]
+            l = int(np.nonzero(first <= blk)[0][-1])
+            rows, cols, lanes = (int(v) for v in geom[l, :3])
+            local = blk - int(first[l])
+            t = np.arange(ta.THREADS)
+            if lanes:
+                assert pass_ == 0
+                row = local * (ta.THREADS // lanes) + t // lanes
+                j = ((np.arange(ta.FIT_GROUPS)[:, None] * lanes
+                      + t % lanes) * ta.VEC)[..., None] + np.arange(ta.VEC)
+                row = np.broadcast_to(row[None, :, None], j.shape)
+                lane0 = np.broadcast_to((t % lanes == 0)[None, :, None],
+                                        j.shape)
+            else:
+                chunks = -(-cols // ta.SPLIT_COLS)
+                row = np.full((1, ta.THREADS, ta.VEC), local // chunks)
+                j = (local % chunks * ta.SPLIT_COLS + t * ta.VEC)[
+                    None, :, None] + np.arange(ta.VEC)
+                lane0 = np.zeros(j.shape, bool)
+                if local % chunks == 0 and pass_ == 1:
+                    scales[1][(l, int(row[0, 0, 0]))] += 1
+            ok = (row < rows) & (j < cols)
+            cover[pass_].update(zip([l] * int(ok.sum()), row[ok].tolist(),
+                                    j[ok].tolist()))
+            for r in np.unique(row[ok & lane0]).tolist():
+                scales[0][(l, r)] += 1
+    return cover, scales
+
+
+# Two blocks per SM of a 132-SM H100.
+H100_BUSY_BLOCKS = 264
+
+
+def test_leaf_table_covers_every_element_once():
+    shapes = _small_mimic_shapes()[:30] + [(2, 9000), (4096, 33), (5, 1500),
+                                           (65536,), (0, 4), (7, 3, 5)]
+    (group,) = ta.leaf_table(tuple(shapes), H100_BUSY_BLOCKS)
+    assert len(group.leaves) == len(shapes) - 1      # the empty leaf is out
+    cover, scales = _kernel_cover(group)
+    for li, i in enumerate(group.leaves):
+        rows, cols = ta.rows_cols(shapes[i])
+        split = cols > ta.FIT_COLS
+        want = {(li, r, c) for r in range(rows) for c in range(cols)}
+        assert set(cover[0]) >= want and all(
+            cover[0][k] == 1 for k in want)
+        assert all(cover[1][k] == (1 if split else 0) for k in want)
+        assert all(scales[1 if split else 0][(li, r)] == 1
+                   for r in range(rows))
+    assert sum(cover[0].values()) == sum(
+        math.prod(s) for s in shapes)
+    # (65536,) and (2, 9000) are split: 64 and 2 x 9 blocks in each pass.
+    assert group.blocks2 == 64 + 18 and group.split_rows == 1 + 2
+    assert ta.launches_per_update(shapes) == 2
+
+
+def test_leaf_table_groups_and_lanes():
+    mimic = [(32,), (50, 32), (2,), (32, 2), (1074, 32), (32, 50), (1, 50)]
+    (group,) = ta.leaf_table(tuple(mimic), H100_BUSY_BLOCKS)
+    # Narrow rows share a warp, one run of 4 elements per lane: 32 columns
+    # take 8 lanes, 50 take 16, 2 take 1; a 1074-row leaf of 32 columns
+    # takes 1074 / 32 blocks.
+    assert group.geom[:, 2].tolist() == [8, 8, 1, 1, 8, 16, 16]
+    assert group.blocks == 1 + 2 + 1 + 1 + 34 + 2 + 1
+    assert group.blocks2 == 0 and ta.launches_per_update(mimic) == 1
+    # A large leaf holds 4 runs per lane: (4096, 1024) takes 64 lanes a row,
+    # 4 rows a block, still 1024 blocks; on a card of 1024 or more busy
+    # blocks it keeps one run per lane.
+    busy = H100_BUSY_BLOCKS
+    assert ta.row_lanes(4096, 1024, busy) == 64
+    assert ta.row_lanes(4096, 1024, 1025) == 256
+    assert ta.row_lanes(8, 1024, busy) == 256
+    assert ta.row_lanes(1, 4096, busy) == 256
+    assert ta.row_lanes(1, 4097, busy) == 0
+    many = tuple([(3, 4)] * (ta.MAX_LEAVES + 1))
+    assert [len(g.leaves) for g in ta.leaf_table(many, busy)] == \
+        [ta.MAX_LEAVES, 1]
+    assert ta.launches_per_update(many) == 2

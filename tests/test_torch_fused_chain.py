@@ -3,9 +3,10 @@ package's Pallas kernel (interpret mode) and its XLA twin, on the CPU.
 
 The CUDA kernel itself cannot run here; its arithmetic is held on the CPU
 three ways: the plain version against the Pallas kernel and the XLA twin,
-and a numpy interpreter of the int32 plan + flat weight buffer that the
-kernel reads, against the plain version. ``test_torch_cuda.py`` holds the
-kernel against the plain version on a GPU.
+and a numpy interpreter of what the kernels read (Stage A's jobs and
+copies, Stage B's int32 plan and packed weights), against the plain
+version. ``test_torch_cuda.py`` holds the kernel against the plain version
+on a GPU.
 
 Tolerance: XLA's and PyTorch's CPU matrix products sum in different orders
 (fp32, K <= 1074 at MIMIC width), which moves results by ~1e-7 relative;
@@ -53,6 +54,17 @@ MIMIC_CASE = (
                    for w in (10, 1024, 768, 99)],
     lambda m: [m.MLPDecoder(50, (32, 32), 2) for _ in range(2)])
 ALL_CASES = dict(SMALL_CASES, mimic=MIMIC_CASE)
+# A last-concat encoder whose hidden layers are softmax (Stage A's row pass)
+# beside one with two hidden layers (two dependent Stage A launches).
+# Another has 27 state-path layers: more copies than one Stage A launch
+# takes, so the rest get a launch of their own.
+PLAN_CASES = dict(ALL_CASES, softmax_hidden=(
+    8, lambda m: [m.MLPEncoder(8, 6, (12, 10), "softmax"),
+                  m.MLPEncoder(8, 9, (5,), "sigmoid")],
+    lambda m: [m.LogisticDecoder(8)]), many_layers=(
+    8, lambda m: [m.MIMICMLPEncoder(8, 3 + w, (8, 8, 8), dropout=0.0)
+                  for w in range(6)],
+    lambda m: [m.MLPDecoder(8, (8, 8), 2)]))
 
 
 def _pair(S, make_enc, make_dec, seed=0):
@@ -133,62 +145,221 @@ def _act(code, v):
     return v
 
 
-def _run_plan(plan, weights, data, valid, init):
-    """What csrc/fused_chain.cu computes, read from the same int32 plan and
-    flat weight buffer, in float64 numpy."""
-    E, D, S, L = plan[:4]
-    enc = plan[6:6 + 3 * E].reshape(E, 3)
-    dec = plan[6 + 3 * E:6 + 3 * E + 3 * D].reshape(D, 3)
-    lay = plan[6 + 3 * E + 3 * D:].reshape(L, 7)
-    assert len(weights) == plan[5]
+def _stage_a(spec, layers, data, B, n_sm):
+    """Stage A's jobs as the kernels run them: per level, each job's K
+    chunks split as ``stage_a_plan`` says, one partial sum per split, the
+    partials summed in split order into one projection per encoder."""
+    levels, _ws, outputs, tickets = spec.stage_a_plan(B, n_sm)
+    assert tickets == sum(r[11] * r[12] for _i, rows, _b in levels
+                          for r in rows if r[9] > 1)
+    out, proj = {}, [None] * len(spec.encoders)
+    for idx, rows, blocks in levels:
+        assert blocks == sum(r[11] * r[12] * r[9] for r in rows)
+        for i, row in zip(idx, rows):
+            j = spec.a_jobs[i]
+            ksplit, cps = int(row[9]), int(row[10])
+            assert outputs[i][1] == ksplit
+            x = data[j.enc] if j.depth == 0 else out[i - 1]
+            w, b = layers[j.layer]
+            w = w[:j.K]
+            parts = [x[:, k0:k0 + cps * fc.BK] @ w[k0:k0 + cps * fc.BK]
+                     for k0 in range(0, ksplit * cps * fc.BK, cps * fc.BK)]
+            covered = sum(min(cps * fc.BK, max(j.K - k0, 0))
+                          for k0 in range(0, ksplit * cps * fc.BK,
+                                          cps * fc.BK))
+            assert covered == j.K and len(parts) == ksplit
+            assert j.proj or ksplit == 1
+            y = sum(parts[1:], parts[0])
+            if j.proj:
+                proj[j.enc] = y
+            else:
+                y = _act(j.act, y + b)
+            out[i] = y
+    return proj
 
-    def run_layers(first, n, x, state):
+
+def _pack(spec, layers):
+    """The packed state-path region as Stage A's copy blocks write it, in
+    launches of ``MAX_COPIES`` copies: block ``i`` of a launch writes
+    ``COPY_SPAN`` floats of the last copy whose first block is ``<= i``.
+    Every float of the region is written exactly once."""
+    region = np.full(spec.region_len, np.nan)
+    written = np.zeros(spec.region_len, dtype=int)
+    assert len(spec.copy_groups) == -(-len(spec.copies) // fc.MAX_COPIES)
+    for copies, rows, blocks in spec.copy_groups:
+        assert len(copies) == len(rows) <= fc.MAX_COPIES
+        firsts = rows[:, 5].tolist()
+        for blk in range(blocks):
+            c = max(i for i, f in enumerate(firsts) if f <= blk)
+            cp = copies[c]
+            K, N = int(rows[c, 3]), int(rows[c, 4])
+            assert (K, N) == (cp.K, cp.N)
+            kp, np_ = -(-K // 4) * 4, -(-N // 4) * 4
+            w, b = layers[cp.layer]
+            for d in range((blk - firsts[c]) * fc.COPY_SPAN,
+                           min((blk - firsts[c] + 1) * fc.COPY_SPAN,
+                               kp * np_ + np_)):
+                if d < kp * np_:
+                    r, col = divmod(d, np_)
+                    v = w[cp.row0 + r, col] if r < K and col < N else 0.0
+                else:
+                    v = b[d - kp * np_] if d - kp * np_ < N else 0.0
+                region[cp.dst + d] = v
+                written[cp.dst + d] += 1
+    assert (written == 1).all()
+    return region
+
+
+def _run_plan(spec, layers, data, valid, init, n_sm=132):
+    """What csrc/fused_chain.cu computes, read from Stage A's jobs and
+    copies, Stage B's int32 plan and the packed region, in float64 numpy.
+    The state-path matrices are read padded, and their pads must be zero."""
+    plan = spec.plan
+    E, D, S, L, ld_s, ld_h, region = (int(v) for v in plan[:7])
+    enc = plan[7:7 + 2 * E].reshape(E, 2)
+    dec = plan[7 + 2 * E:7 + 2 * E + 3 * D].reshape(D, 3)
+    lay = plan[7 + 2 * E + 3 * D:].reshape(L, 7)
+    assert region == spec.region_len and region % 4 == 0
+    assert ld_s % 4 == 0 and ld_h % 4 == 0 and ld_s >= S
+    B = data[0].shape[0]
+    proj = _stage_a(spec, layers, data, B, n_sm)
+    wb = _pack(spec, layers)
+
+    def r4(x):
+        return -(-x // 4) * 4
+
+    def mat(off, K, N):
+        m = wb[off:off + r4(K) * r4(N)].reshape(r4(K), r4(N))
+        assert not m[K:].any() and not m[:, N:].any()
+        return m[:K, :N]
+
+    def run_layers(first, n, state, e):
         prev = None
-        for src, K, N, act, w_off, ws_off, b_off in lay[first:first + n]:
-            inp = {fc.SRC_DATA: x, fc.SRC_PREV: prev, fc.SRC_STATE: state}[
-                src]
-            y = inp @ weights[w_off:w_off + K * N].reshape(K, N)
-            if ws_off >= 0:
-                y = y + state @ weights[ws_off:ws_off + S * N].reshape(S, N)
-            prev = _act(act, y + weights[b_off:b_off + N])
+        for src, K, N, act, w_off, b_off, add in lay[first:first + n]:
+            assert N <= ld_h
+            inp = state if src == fc.SRC_STATE else prev
+            y = inp @ mat(w_off, K, N) + wb[b_off:b_off + N]
+            assert not wb[b_off + N:b_off + r4(N)].any()
+            if add:
+                y = y + proj[e]
+            prev = _act(act, y)
         return prev
 
-    state = np.broadcast_to(init, (data[0].shape[0], S))
+    state = np.broadcast_to(init, (B, S))
     states = [state]
-    for e, (first, n, F) in enumerate(enc):
-        assert data[e].shape[1] == F
-        new = run_layers(first, n, data[e], state)
+    for e, (first, n) in enumerate(enc):
+        new = run_layers(first, n, state, e)
         state = np.where(valid[:, e:e + 1] > 0, new, state)
         states.append(state)
-    outs = [np.stack([run_layers(first, n, None, s) for s in states])
+    outs = [np.stack([run_layers(first, n, s, None) for s in states])
             for first, n, _c in dec]
     return np.stack(states), outs
 
 
-@pytest.mark.parametrize("case", sorted(ALL_CASES))
-def test_kernel_plan_reproduces_plain_version(case):
-    S, make_enc, make_dec = ALL_CASES[case]
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+@pytest.mark.parametrize("B,n_sm", [(9, 132), (300, 4)])
+def test_kernel_plan_reproduces_plain_version(case, B, n_sm):
+    """The plan at a batch that splits K across blocks (9 rows on 132 SMs)
+    and at one that does not (300 rows on 4 SMs)."""
+    S, make_enc, make_dec = PLAN_CASES[case]
     tm = MultiModN(S, make_enc(tenc), make_dec(tdec), 1.0, 0.0, seed=3,
                    device="cpu")
-    data, valid = _inputs(tm.encoders, 9, seed=2)
+    data, valid = _inputs(tm.encoders, B, seed=2)
     spec = fc.ChainSpec(tm.encoders, tm.decoders, S)
-    weights = spec.flatten_params(tm.params).double().numpy()
+    layers = [(w.double().numpy(), b.double().numpy())
+              for w, b in spec.layer_params(tm.params)]
     init = tm.params["init_state"]["value"][0].double().numpy()
     want = _port_forward(tm, data, valid)
-    _assert_close(_run_plan(spec.plan, weights,
+    _assert_close(_run_plan(spec, layers,
                             [d.astype(np.float64) for d in data], valid,
-                            init), want, ATOL)
+                            init, n_sm), want, ATOL)
 
 
 def test_mimic_plan_sizes():
     S, make_enc, make_dec = MIMIC_CASE
     spec = fc.ChainSpec(make_enc(tenc), make_dec(tdec), S)
-    # 4 encoders x 3 layers + 2 decoders x 3 layers; header + records.
+    # 4 encoders x 3 layers + 2 decoders x 3 layers.
     assert len(spec.layers) == 18
-    assert len(spec.plan) == 6 + 3 * 4 + 3 * 2 + 7 * 18
-    assert spec.n_weights == 83692          # ~335 KB of fp32 weights
-    assert spec.hidden_width == 50
+    # Stage A: the x-parts of the 4 first layers over widths
+    # {10, 1024, 768, 99} -> 32, one launch.
+    assert [(j.K, j.N, j.proj) for j in spec.a_jobs] == \
+        [(10, 32, True), (1024, 32, True), (768, 32, True), (99, 32, True)]
+    assert spec.n_proj_weights == 60832           # ~243 KB of fp32
+    # Stage B: per encoder s@Ws (50x32), 32x32, 32x50; 2 decoders of
+    # 50x32, 32x32, 32x2; with biases.
+    assert spec.n_state_weights == 22860          # ~91 KB of fp32
+    assert spec.n_weights == 83692
+    assert len(spec.plan) == 7 + 2 * 4 + 3 * 2 + 7 * (4 * 3 + 2 * 3)
+    # Stage A's launch packs the 18 state-path layers, one block each.
+    assert len(spec.copies) == 18 and len(spec.copy_groups) == 1
+    assert spec.copy_groups[0][2] == 18
+    assert spec.launches == 2 and spec.a_depth == 1
+    # The padded state-path region fits one block's shared memory beside
+    # the 128-row tiles.
+    region = 4 * spec.region_len
+    assert region < 96 * 1024
+    assert region + 4 * 128 * (spec.state_stride + 2 * spec.hidden_stride) \
+        <= fc.MAX_SHARED_BYTES
     assert spec.shared_bytes <= fc.MAX_SHARED_BYTES
+
+
+def test_copies_past_one_launch_take_their_own():
+    S, make_enc, make_dec = PLAN_CASES["many_layers"]
+    spec = fc.ChainSpec(make_enc(tenc), make_dec(tdec), S)
+    assert len(spec.copies) == 27 > fc.MAX_COPIES
+    assert [len(c) for c, _r, _b in spec.copy_groups] == [fc.MAX_COPIES, 3]
+    # Stage A with the first 24 copies, 3 copies alone, Stage B.
+    assert spec.launches == 3
+
+
+def test_stage_a_spreads_a_small_batch_over_the_card():
+    """At B=16 Stage A splits the MIMIC projections' K chunks into 61
+    blocks; at B=65536 it tiles rows and does not split."""
+    spec = fc.ChainSpec(MIMIC_CASE[1](tenc), MIMIC_CASE[2](tdec),
+                        MIMIC_CASE[0])
+    (small,), ws_small, out_small, tickets = spec.stage_a_plan(16, 132)
+    assert small[2] == 61 and [k for _o, k, _t in out_small] == \
+        [1, 32, 24, 4]
+    assert ws_small == 16 * 32 * 61 and tickets == 3
+    (large,), ws_large, out_large, tickets = spec.stage_a_plan(65536, 132)
+    assert large[2] == 4 * 512 and all(k == 1 for _o, k, _t in out_large)
+    assert ws_large == 65536 * 32 * 4 and tickets == 0
+
+
+def test_flatten_params_places_every_parameter_once():
+    """Parameters numbered 1, 2, ...: the packed region holds every
+    state-path parameter once, Stage A's jobs read the others in place, and
+    the pads are 0. Stage A's copy blocks write the same region."""
+    S, make_enc, make_dec = SMALL_CASES["mixed_gelu_tanh_softmax"]
+    tm = MultiModN(S, make_enc(tenc), make_dec(tdec), 1.0, 0.0, seed=3,
+                   device="cpu")
+    spec = fc.ChainSpec(tm.encoders, tm.decoders, S)
+    layers, n = [], 0
+    for w, b in spec.layer_params(tm.params):
+        pair = []
+        for t in (w, b):
+            pair.append(torch.arange(n + 1, n + 1 + t.numel(),
+                                     dtype=torch.float32).reshape(t.shape))
+            n += t.numel()
+        layers.append(tuple(pair))
+    params = {"encoders": [], "decoders": []}
+    it = iter(layers)
+    for part, mods in (("encoders", tm.params["encoders"]),
+                       ("decoders", tm.params["decoders"])):
+        for p in mods:
+            params[part].append({"layers": [
+                dict(zip("wb", next(it))) for _ in p["layers"]]})
+    buf = spec.flatten_params(params)
+    assert buf.shape == (spec.region_len,) and spec.region_len % 4 == 0
+    in_a = [w[:j.K] if j.proj else torch.cat([w.reshape(-1), b])
+            for j in spec.a_jobs for w, b in [layers[j.layer]]]
+    vals = torch.cat([buf[buf > 0]] + [t.reshape(-1) for t in in_a])
+    assert len(buf[buf > 0]) == spec.n_state_weights
+    assert sorted(vals.tolist()) == list(range(1, spec.n_weights + 1)) \
+        and spec.n_weights == n
+    np.testing.assert_array_equal(
+        _pack(spec, [(w.numpy(), b.numpy()) for w, b in layers]),
+        buf.numpy())
 
 
 def test_chain_spec_rejects_other_encoders():
@@ -217,7 +388,7 @@ def test_wrapper_input_checks():
     tm = MultiModN(8, [tenc.MLPEncoder(8, 5, (4,))],
                    [tdec.LogisticDecoder(8)], 1.0, 0.0, device="cpu")
     spec = fc.ChainSpec(tm.encoders, tm.decoders, 8)
-    w = spec.flatten_params(tm.params)
+    w = spec.layer_params(tm.params)
     data, valid, init = [torch.zeros(3, 5)], torch.ones(3, 1), torch.zeros(8)
     fc._check_inputs(spec, w, data, valid, init)
     with pytest.raises(TypeError, match="float32"):
