@@ -2,8 +2,10 @@
 """Drive the PyTorch/CUDA port (``multimodn_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --protocol-only --patients 6485 --epochs 1
 
-Phases, each fatal on failure:
+The first form is the smoke run; the second times phase 8 alone at another
+data size and depth. Phases, each fatal on failure:
 
 1. the card's name and power limit, torch and CUDA versions; TF32 off;
 2. build the fused-chain kernel from ``multimodn_tpu_torch/csrc``;
@@ -39,18 +41,36 @@ Phases, each fatal on failure:
    and ``torch.profiler`` splits a few steps into device and host time;
 7. the card against the CPU: the same weights take 3 ``Adam8bit`` steps on
    the same batches on both devices and must agree;
-8. the earlier designs' times from PERF.md on a line of their own, one
-   ``{"kernels": [...]}`` line of this run's numbers, the card's line, and
-   last the ``{"ok": true, ...}`` line.
+8. the MIMIC protocol: the port's three MIMIC pipelines (single-task, 2
+   targets x 5 folds; multi-task, 5 folds; MNAR with 50% missingness) at
+   the MIMIC model's full width on the pipelines' default synthetic data
+   (120 patients), 3 epochs each, in a temporary directory that holds the
+   results CSVs and the data cache. The CSVs must hold 20, 20 and 40 rows,
+   every AUROC finite and in [0, 1], every MultiModN and HAIM parameter on
+   the card, and neither pandas, scikit-learn, JAX nor the JAX package
+   loaded. Each pipeline's wall time splits into data and cache build,
+   MultiModN folds and HAIM folds, with training steps per second and the
+   cache files' parses (each pipeline starts with no parse kept, as in a
+   process of its own). No kernel is on this path (the protocol trains
+   with ``Adam`` and tests through the plain chain, as the JAX package's
+   does): both launch counters must read 0 after each pipeline;
+9. the earlier designs' times from PERF.md on a line of their own, one
+   ``{"kernels": [...]}`` line of this run's numbers, the script's wall
+   time, the card's line, and last the ``{"ok": true, ...}`` line.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
 """
+import argparse
+import csv
+import importlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -71,6 +91,7 @@ from multimodn_tpu_torch.ops.fused_adam import FUSED_ADAM
 from multimodn_tpu_torch.ops.fused_chain import FUSED_CHAIN, ChainSpec, \
     fused_chain_forward, fused_chain_forward_ref
 
+START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # MIMIC multi-task model at the defaults of pipelines/mimic/common.py.
 MIMIC_STATE, MIMIC_WIDTHS, MIMIC_HIDDEN, MIMIC_TARGETS = 50, (10, 1024, 768,
@@ -745,6 +766,202 @@ def check_device_vs_cpu(device):
     return err
 
 
+# Phase 8: the three MIMIC pipelines with their argv and the rows their
+# results CSVs must hold (2 targets x 5 folds x (MultiModN, HAIM); 5 folds x
+# 2 targets x 2 models; and twice that for MNAR's clean and flipped tests).
+PROTOCOL_EPOCHS = 3
+PROTOCOL_RUNS = (
+    ("mimic_single_task_pipeline", [], 20),
+    ("mimic_multi_task_pipeline", [], 20),
+    ("mimic_single_task_mnar_missingness_pipeline", ["-p", "50"], 40),
+)
+FOREIGN_MODULES = ("pandas", "sklearn", "jax", "multimodn_tpu")
+
+
+def foreign_modules():
+    return sorted(k for k, v in sys.modules.items()
+                  if v is not None and k.split(".")[0] in FOREIGN_MODULES)
+
+
+class PhaseClock:
+    """Synchronised host time spent inside wrapped functions, per phase
+    (nested calls of one phase count once), and training steps per phase."""
+
+    def __init__(self):
+        self.seconds, self.steps, self._depth = {}, {}, {}
+        self._undo = []
+
+    def wrap(self, owner, name, phase, steps=None):
+        fn = getattr(owner, name)
+
+        def timed(*args, **kwargs):
+            depth = self._depth.get(phase, 0)
+            self._depth[phase] = depth + 1
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+            finally:
+                self._depth[phase] = depth
+            if depth == 0:
+                self.seconds[phase] = self.seconds.get(phase, 0.0) + \
+                    time.perf_counter() - t0
+            if steps is not None:
+                self.steps[phase] = self.steps.get(phase, 0) + \
+                    steps(out, *args, **kwargs)
+            return out
+
+        setattr(owner, name, timed)
+        self._undo.append((owner, name, fn))
+
+    def restore(self):
+        for owner, name, fn in reversed(self._undo):
+            setattr(owner, name, fn)
+        self._undo = []
+
+    def take(self):
+        out = (self.seconds, self.steps)
+        self.seconds, self.steps = {}, {}
+        return out
+
+
+def run_protocol(device, patients=None, epochs=PROTOCOL_EPOCHS):
+    """Phase 8: the three MIMIC pipelines on the card, on the synthetic
+    table of ``patients`` patients (default: the pipelines' own)."""
+    from multimodn_tpu_torch.baselines.haim import HAIM
+    from multimodn_tpu_torch.data import mimic as mimic_data
+    from multimodn_tpu_torch.data import table as table_io
+    from multimodn_tpu_torch.pipelines.mimic import common
+
+    if patients is None:
+        patients = common.MimicConfig().synthetic_patients
+
+    if foreign_modules():
+        raise AssertionError(f"loaded before phase 8: {foreign_modules()}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_protocol_")
+    saved_env = {k: os.environ.get(k) for k in
+                 ("MULTIMODN_STORAGE", "MULTIMODN_MIMIC_EMBED_PATH")}
+    saved_root = mimic_data.DEFAULT_CACHE_ROOT
+    os.environ["MULTIMODN_STORAGE"] = os.path.join(work, "store")
+    os.environ.pop("MULTIMODN_MIMIC_EMBED_PATH", None)
+    mimic_data.DEFAULT_CACHE_ROOT = os.path.join(work, "cache")
+    models = []
+    build = common.build_modn
+
+    def recording_build(*args, **kwargs):
+        models.append(build(*args, **kwargs))
+        return models[-1]
+
+    class RecordingHAIM(HAIM):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            models.append(self)
+
+    clock = PhaseClock()
+    clock.wrap(mimic_data.MIMICDataset, "__init__", "data")
+    clock.wrap(mimic_data, "build_mimic_cache", "data")
+    clock.wrap(MultiModN, "_fit_best", "modn", steps=lambda out, self, tr,
+               *a, **k: out[0]["epochs_ran"] * tr.n_batches)
+    clock.wrap(MultiModN, "test", "modn")
+    clock.wrap(HAIM, "fit_best", "haim", steps=lambda out, self, tr, *a,
+               **k: len(out["scores"]) * tr.n_batches)
+    clock.wrap(HAIM, "test", "haim")
+    common.build_modn, common.HAIM = recording_build, RecordingHAIM
+    # Each parse of a cache file: its seconds, and whether the per-file
+    # parse memo of data/table.py served it (the same array came back).
+    parses, read_numeric = [], mimic_data.read_numeric_csv
+
+    def timed_read(path):
+        t0 = time.perf_counter()
+        out = read_numeric(path)
+        parses.append((time.perf_counter() - t0, id(out[1]),
+                       out[1].shape[1]))
+        return out
+
+    mimic_data.read_numeric_csv = timed_read
+    results = {}
+    try:
+        for module, argv, want_rows in PROTOCOL_RUNS:
+            main = importlib.import_module(
+                f"multimodn_tpu_torch.pipelines.mimic.{module}").main
+            # Each pipeline starts as in a process of its own: no parse is
+            # kept from the one before (the cache files on disk are).
+            table_io._NUMERIC_CACHE.clear()
+            del parses[:]
+            cfg = common.MimicConfig(synthetic_patients=patients)
+            torch.cuda.synchronize()
+            FUSED_CHAIN.launches = FUSED_ADAM.launches = 0
+            n_models = len(models)
+            t0 = time.perf_counter()
+            rows = main(argv + ["-e", str(epochs)], cfg, device=device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            seconds, steps = clock.take()
+            launched = (FUSED_CHAIN.launches, FUSED_ADAM.launches)
+            name = module.replace("_pipeline", "")
+            path = os.path.join(work, "store", "nips", "results",
+                                f"{name}_(auc + bac).csv")
+            with open(path, newline="") as f:
+                table = list(csv.DictReader(f))
+            aucs = [float(r["auc"]) for r in table]
+            if len(table) != want_rows or len(rows) != want_rows:
+                raise AssertionError(f"{name}: {len(table)} CSV rows, "
+                                     f"{len(rows)} results; want {want_rows}")
+            if not all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in aucs):
+                raise AssertionError(f"{name}: AUROC outside [0, 1]: {aucs}")
+            off_card = [type(m).__name__ for m in models[n_models:]
+                        if not all(t.is_cuda for t in tree_leaves(m.params))]
+            if off_card or len(models) == n_models:
+                raise AssertionError(f"{name}: parameters off the card in "
+                                     f"{off_card}")
+            if launched != (0, 0):
+                raise AssertionError(f"{name}: the fused kernels launched "
+                                     f"{launched} times on the protocol "
+                                     f"path, which runs neither")
+            first = {}
+            for sec, key, _ in parses:
+                first.setdefault(key, sec)
+            miss_s = sum(first.values())
+            other = wall - sum(seconds.values())
+            r = {"patients": patients, "epochs": epochs,
+                 "rows": len(table), "wall_s": wall,
+                 "data_and_cache_s": seconds.get("data", 0.0),
+                 "modn_folds_s": seconds.get("modn", 0.0),
+                 "haim_folds_s": seconds.get("haim", 0.0),
+                 "other_s": other,
+                 "modn_steps": steps.get("modn", 0),
+                 "haim_steps": steps.get("haim", 0),
+                 "modn_steps_per_s": steps.get("modn", 0)
+                 / max(seconds.get("modn", 0.0), 1e-9),
+                 "haim_steps_per_s": steps.get("haim", 0)
+                 / max(seconds.get("haim", 0.0), 1e-9),
+                 "models": len(models) - n_models,
+                 "auc_min": min(aucs), "auc_max": max(aucs),
+                 "parses": len(parses), "parse_misses": len(first),
+                 "parse_miss_s": miss_s,
+                 "parse_hit_s": sum(p[0] for p in parses) - miss_s,
+                 "cache_rows": max(p[2] for p in parses),
+                 "k1_launches": launched[0], "k2_launches": launched[1]}
+            results[name] = r
+            log(f"  {name}: {json.dumps(r)}")
+    finally:
+        clock.restore()
+        common.build_modn, common.HAIM = build, HAIM
+        mimic_data.read_numeric_csv = read_numeric
+        mimic_data.DEFAULT_CACHE_ROOT = saved_root
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(work, ignore_errors=True)
+    if foreign_modules():
+        raise AssertionError(f"loaded by phase 8: {foreign_modules()}")
+    log(f"  pandas, scikit-learn, JAX and the JAX package not loaded; "
+        f"MultiModN and HAIM parameters on {device}")
+    return results
+
+
 def build_kernels():
     """Build every kernel library at once (one nvcc per source)."""
     with ThreadPoolExecutor(max_workers=2) as pool:
@@ -758,7 +975,21 @@ def build_kernels():
                 if "registers" in line or "spill" in line))
 
 
-def main() -> int:
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--protocol-only", action="store_true",
+                   help="run phases 1 and 8 only and end with the protocol "
+                        "line (no kernel build, no ok line)")
+    p.add_argument("--patients", type=int, default=None,
+                   help="synthetic patients in phase 8 (default: the "
+                        "pipelines' own)")
+    p.add_argument("--epochs", type=int, default=PROTOCOL_EPOCHS,
+                   help="epochs of each fold in phase 8")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
@@ -773,6 +1004,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    if args.protocol_only:
+        log("== phase 8: MIMIC protocol")
+        protocol = run_protocol(device, args.patients, args.epochs)
+        log("protocol: " + json.dumps(protocol))
+        log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
+        log(card)
+        return 0
 
     log("== phase 2: build")
     t0 = time.perf_counter()
@@ -799,6 +1037,10 @@ def main() -> int:
 
     log("== phase 7: card against CPU")
     device_err = check_device_vs_cpu(device)
+
+    log("== phase 8: MIMIC protocol")
+    log(card_line())
+    protocol = run_protocol(device, args.patients, args.epochs)
 
     main_b = mimic[SERVING_BATCH]
     entry = {
@@ -852,7 +1094,9 @@ def main() -> int:
     }
     log("earlier designs (not measured in this run): "
         + json.dumps(EARLIER))
+    log("protocol: " + json.dumps(protocol))
     log(json.dumps({"kernels": [entry, adam_entry]}))
+    log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

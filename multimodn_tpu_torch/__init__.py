@@ -13,7 +13,10 @@ unrolled fusion chain, ``MultiModN`` inference (``predict``,
 training (``train_epoch``, ``test``, ``fit``, ``fit_best``) with ``Adam`` and
 ``Adam8bit`` (whose update is ``csrc/fused_adam.cu``), ``ArrayLoader``,
 ``MultiModNHistory``, ``InferenceSession`` and ``export_model`` /
-``load_model``.
+``load_model``; and the MIMIC experiment protocol without pandas or
+scikit-learn: ``data.mimic`` / ``data.synth`` / ``data.kfold``, the HAIM
+baseline (``baselines``), ``experiments.kfold_fit_best``, ``checkpoint``
+and the three MIMIC pipelines (``pipelines.mimic``).
 """
 from multimodn_tpu_torch.convert import opt_state_from_jax, params_from_jax
 from multimodn_tpu_torch.core.history import MultiModNHistory

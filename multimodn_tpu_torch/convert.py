@@ -59,10 +59,23 @@ def params_from_jax(tree: dict, device=None) -> dict:
                                      device=device), _per_encoder(tree))
 
 
+def haim_params_from_jax(tree: dict, device=None) -> dict:
+    """A JAX ``HAIM.state_dict()`` tree (``{"layers": [{"w", "b"}, ...]}``,
+    numpy or JAX arrays) -> this package's HAIM parameters: float32 tensors
+    on ``device`` (CUDA unless the caller names another)."""
+    device = resolve_device(device)
+    if set(tree) != {"layers"}:
+        raise ValueError(f"a HAIM state holds only 'layers', got "
+                         f"{sorted(tree)}")
+    return tree_map(lambda leaf: torch.as_tensor(np.array(leaf, np.float32),
+                                                 device=device), tree)
+
+
 def params_to_numpy(params: dict) -> dict:
     """Parameters -> the same tree of numpy arrays (the JAX package's
-    ``state_dict`` form)."""
-    return tree_map(lambda t: t.detach().cpu().numpy(), params)
+    ``state_dict`` form). The arrays are copies: on a CPU model a view would
+    change under later in-place training steps."""
+    return tree_map(lambda t: t.detach().cpu().numpy().copy(), params)
 
 
 def opt_state_from_jax(state: dict, device=None) -> dict:

@@ -4,5 +4,7 @@ from multimodn_tpu_torch.data.dataset import (
     Subset,
 )
 from multimodn_tpu_torch.data.loader import ArrayLoader
+from multimodn_tpu_torch.data.mimic import MIMICDataset
 
-__all__ = ["MultiModDataset", "PartitionDataset", "Subset", "ArrayLoader"]
+__all__ = ["MultiModDataset", "PartitionDataset", "Subset", "ArrayLoader",
+           "MIMICDataset"]

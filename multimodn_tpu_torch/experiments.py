@@ -1,0 +1,106 @@
+"""The k-fold experiment (PyTorch twin of ``kfold_fit_best`` in
+``multimodn_tpu/experiments.py``).
+
+The JAX package trains every fold of a k-fold protocol at once in one
+vmapped program, padding folds to a common batch count with empty batches
+that are gated off exactly; it is documented bit-identical to training the
+folds one after another. Here the folds run one after another through
+``MultiModN.fit_best``, with the same arguments and the same per-fold
+results.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from multimodn_tpu_torch.optim import Optimizer
+
+
+def _stack_sums(per_epoch: List[dict]) -> dict:
+    """Per-epoch grid-sum dicts -> one dict of (epochs, ...) arrays."""
+    return {k: np.stack([s[k].numpy() for s in per_epoch])
+            for k in per_epoch[0]}
+
+
+def kfold_fit_best(
+    model_factory: Callable[[int], "MultiModN"],
+    folds: Sequence[Tuple],            # [(train_loader, val_loader), ...]
+    optimizer: Optimizer,
+    criterion=None,
+    epochs: int = 1,
+    seeds: Optional[Sequence[int]] = None,
+    mesh=None,
+    fold_axis: str = "fold",
+    patience: Optional[int] = None,
+    on_epoch: Optional[Callable] = None,
+) -> List[dict]:
+    """Train one model per fold with best-epoch selection on validation
+    AUROC + balanced accuracy.
+
+    Args:
+        model_factory: seed -> MultiModN; one fresh model per fold.
+        folds: per-fold ``(train_loader, val_loader)`` pairs.
+        optimizer: shared by the folds; each fold's model keeps its own
+            state.
+        seeds: per-fold init seeds (default 0..F-1, the reference's per-fold
+            seed increment).
+        patience: per-fold early stopping, ``fit_best``'s semantics.
+        mesh, fold_axis, on_epoch: not ported (fold sharding across GPUs,
+            ROADMAP.md Queue A item 20; progress callbacks, item 6); they
+            raise ``NotImplementedError``, as do streaming loaders (item 15)
+            and models with ``shuffle_mode`` (item 8).
+
+    Returns:
+        Per-fold dicts: {model (best parameters restored, cycle, epoch
+        counter and the fold's optimizer state advanced as by training),
+        best_epoch, best_score, scores, epochs_ran, train_sums, val_sums,
+        n_train_batches, n_val_batches}; scores and sums cover exactly the
+        executed epochs.
+    """
+    folds = list(folds)
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh=: sharding the fold axis across GPUs is not ported yet "
+            "(ROADMAP.md Queue A item 20)")
+    if on_epoch is not None:
+        raise NotImplementedError(
+            "on_epoch progress callbacks are not ported yet (ROADMAP.md "
+            "Queue A item 6)")
+    if any(hasattr(ldr, "iter_batches") for pair in folds for ldr in pair):
+        raise NotImplementedError(
+            "streaming fold loaders are not ported yet (ROADMAP.md Queue A "
+            "item 15); pass ArrayLoaders")
+    if patience is not None and patience < 1:
+        raise ValueError(f"patience must be >= 1, got {patience}")
+    shuffles = [bool(getattr(f[0], "shuffle", False)) for f in folds]
+    if any(shuffles) and not all(shuffles):
+        raise ValueError(
+            "all fold train loaders must agree on shuffle=, as in the JAX "
+            "package's one program over every fold.")
+    seeds = list(seeds) if seeds is not None else list(range(len(folds)))
+    if len(seeds) != len(folds):
+        raise ValueError(f"{len(seeds)} seeds for {len(folds)} folds")
+    models = [model_factory(s) for s in seeds]
+    if models and models[0].shuffle_mode:
+        raise NotImplementedError(
+            "kfold_fit_best with shuffle_mode needs the scan or switch "
+            "chain, not ported yet (ROADMAP.md Queue A item 8)")
+    results = []
+    for model, (train_loader, val_loader) in zip(models, folds):
+        info, train_sums, val_sums = model._fit_best(
+            train_loader, optimizer, criterion, epochs, val_loader,
+            history=None, val_tag="val", restore_best=True,
+            patience=patience)
+        results.append({
+            "model": model,
+            "best_epoch": info["best_epoch"],
+            "best_score": info["best_score"],
+            "scores": info["scores"],
+            "epochs_ran": info["epochs_ran"],
+            "train_sums": _stack_sums(train_sums),
+            "val_sums": _stack_sums(val_sums),
+            "n_train_batches": train_loader.n_batches,
+            "n_val_batches": val_loader.n_batches,
+        })
+    return results

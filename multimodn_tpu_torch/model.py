@@ -443,6 +443,14 @@ class MultiModN:
         epoch. Returns ``{"best_epoch", "best_score", "best_params",
         "scores", "epochs_ran"}``; with ``restore_best`` the model's
         parameters become the best epoch's."""
+        return self._fit_best(train_loader, optimizer, criterion, epochs,
+                              val_loader, history, val_tag, restore_best,
+                              patience)[0]
+
+    def _fit_best(self, train_loader, optimizer, criterion, epochs,
+                  val_loader, history, val_tag, restore_best, patience):
+        """``fit_best`` plus each executed epoch's training and validation
+        grid sums (host tensors)."""
         if val_loader is None:
             raise ValueError("fit_best requires a val_loader")
         binary = [d.n_classes == 2 for d in self.decoders]
@@ -459,13 +467,15 @@ class MultiModN:
         score_fn = make_selection_score(binary)
         _vdata, vtargets, vmask = val_loader.stacks(self.device)
         best = (tree_map(torch.clone, self.params), float("-inf"), -1)
-        scores, since = [], 0
+        scores, since, train_sums, val_sums = [], 0, [], []
         for e in range(epochs):
             tsums, _ = self._train_pass(train_loader, optimizer, loss_fn,
                                         self._epoch_counter + e)
             vsums, outputs = self._eval_pass(val_loader, loss_fn)
             tsums, vsums, score = to_host(
                 [tsums, vsums, score_fn(outputs, vtargets, vmask)])
+            train_sums.append(tsums)
+            val_sums.append(vsums)
             scores.append(float(score))
             best, improved = update_best(best, self.params, scores[-1], e)
             since = 0 if improved else since + 1
@@ -481,13 +491,14 @@ class MultiModN:
         best_params, best_score, best_epoch = best
         if restore_best:
             self.params = best_params
-        return {
+        info = {
             "best_epoch": best_epoch,
             "best_score": best_score,
             "best_params": params_to_numpy(best_params),
             "scores": np.asarray(scores, np.float32),
             "epochs_ran": len(scores),
         }
+        return info, train_sums, val_sums
 
     # ------------------------------------------------------------------
     # Persistence

@@ -340,3 +340,49 @@ def test_training_step_on_cuda_matches_cpu_model(cuda):
         tree_leaves(gpu.state_dict()), tree_leaves(cpu.state_dict()))])
     assert diffs.max() <= 2 * LR
     assert np.mean(diffs > 1e-6) < 1e-3
+
+
+@pytest.mark.cuda
+def test_multi_task_pipeline_on_cuda(cuda, tmp_path, monkeypatch):
+    """The port's MIMIC multi-task pipeline at full width, 2 folds, 1 epoch,
+    on the card: every MultiModN and HAIM parameter lives there, the results
+    CSV (in this test's own storage, with its own cache) gets 2 MultiModN and
+    2 HAIM rows per fold, and every AUROC is in [0, 1]. It launches neither
+    kernel: the protocol trains with Adam and tests through the plain chain,
+    as the JAX package's does."""
+    import csv
+    from multimodn_tpu_torch.data import mimic
+    from multimodn_tpu_torch.pipelines.mimic import common
+    from multimodn_tpu_torch.pipelines.mimic import \
+        mimic_multi_task_pipeline as multi
+
+    monkeypatch.delenv("MULTIMODN_MIMIC_EMBED_PATH", raising=False)
+    monkeypatch.setenv("MULTIMODN_STORAGE", str(tmp_path / "store"))
+    monkeypatch.setattr(mimic, "DEFAULT_CACHE_ROOT", str(tmp_path / "cache"))
+    models = []
+    build = common.build_modn
+
+    def recording_build(*args, **kwargs):
+        models.append(build(*args, **kwargs))
+        return models[-1]
+
+    class RecordingHAIM(common.HAIM):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            models.append(self)
+
+    monkeypatch.setattr(common, "build_modn", recording_build)
+    monkeypatch.setattr(common, "HAIM", RecordingHAIM)
+    launches = (fc.FUSED_CHAIN.launches, fa.FUSED_ADAM.launches)
+    rows = multi.main(["-e", "1"], common.MimicConfig(nfold=2,
+                                                      synthetic_patients=40))
+    assert len(rows) == 8 and len(models) == 2 + 4
+    for m in models:
+        assert all(t.is_cuda for t in tree_leaves(m.params))
+    path = tmp_path / "store" / "nips" / "results" / \
+        "mimic_multi_task_(auc + bac).csv"
+    with open(path, newline="") as f:
+        table = list(csv.DictReader(f))
+    assert len(table) == 8
+    assert all(0.0 <= float(r["auc"]) <= 1.0 for r in table)
+    assert (fc.FUSED_CHAIN.launches, fa.FUSED_ADAM.launches) == launches

@@ -86,6 +86,43 @@ def test_cpu_training_needs_neither_jax_nor_pandas():
     assert proc.stdout.strip() == "ok"
 
 
+def test_mimic_pipelines_run_without_jax_pandas_or_sklearn(tmp_path):
+    """One epoch of each of the port's three MIMIC pipelines on the CPU at
+    a tiny size, in a process where importing jax, the JAX package, pandas
+    or scikit-learn fails."""
+    script = textwrap.dedent("""
+        import os, sys
+        for name in ("jax", "multimodn_tpu", "pandas", "sklearn"):
+            sys.modules[name] = None       # any import of them now fails
+        from multimodn_tpu_torch.data import mimic
+        mimic.DEFAULT_CACHE_ROOT = os.path.join(sys.argv[1], "cache")
+        os.environ["MULTIMODN_STORAGE"] = os.path.join(sys.argv[1], "store")
+        from multimodn_tpu_torch.pipelines.mimic import (
+            common, mimic_multi_task_pipeline as multi,
+            mimic_single_task_mnar_missingness_pipeline as mnar,
+            mimic_single_task_pipeline as single)
+        rows = []
+        for main, argv in ((single.main, ["-e", "1"]),
+                           (multi.main, ["-e", "1"]),
+                           (mnar.main, ["-e", "1", "-p", "50"])):
+            cfg = common.MimicConfig(sources=["de", "vd", "ts_ce"], nfold=2,
+                                     synthetic_patients=24)
+            rows.append(len(main(argv, cfg, device="cpu")))
+        assert rows == [8, 8, 16], rows
+        leaked = sorted(k for k in sys.modules if k.split(".")[0] in
+                        ("jax", "multimodn_tpu", "pandas", "sklearn")
+                        and sys.modules[k] is not None)
+        assert not leaked, leaked
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp_path)],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300, env={**os.environ,
+                                            "MULTIMODN_MIMIC_EMBED_PATH": ""})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
 @pytest.fixture()
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
