@@ -54,9 +54,28 @@ data size and depth. Phases, each fatal on failure:
    process of its own). No kernel is on this path (the protocol trains
    with ``Adam`` and tests through the plain chain, as the JAX package's
    does): both launch counters must read 0 after each pipeline;
-9. the earlier designs' times from PERF.md on a line of their own, one
-   ``{"kernels": [...]}`` line of this run's numbers, the script's wall
-   time, the card's line, and last the ``{"ok": true, ...}`` line.
+9. the Titanic quick-start and its pipelines: the port's six Titanic
+   pipelines at 5 epochs (the reference's smoke depth) with the results
+   CSV written in a temporary directory, plots and pickles off; then the
+   quick-start (the titanic_mlp config) for its published 300 epochs of
+   ``fit``, then ``test``, the last epoch's training loss below the
+   first's; then the trained quick-start, partitioned, featurewise and
+   missingness models through ``export_model`` -> ``load_model``, each
+   answering its validation set in requests of 16 rows through
+   ``fused_forward`` (K1 at state 1, at two partitions, at five and six
+   1-feature modalities, with NaN cells in the last), held against the
+   plain chain and ``InferenceSession``, with K1's launches counted over
+   those requests and K1 timed beside its plain version and its bound.
+   Every loss finite, every parameter on the card, no pandas,
+   scikit-learn, JAX or JAX package loaded, and no kernel launched while
+   training (the pipelines train with ``Adam`` on the plain chain, as the
+   JAX package's do); wall times, training steps per second, and a
+   ``torch.profiler`` split of 8 steps of the quick-start's and the LSTM
+   pipeline's models printed;
+10. the earlier designs' times from PERF.md on a line of their own, one
+   ``{"kernels": [...]}`` line of this run's numbers (K1's with a
+   ``titanic`` block), the script's wall time, the card's line, and last
+   the ``{"ok": true, ...}`` line.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
@@ -351,6 +370,36 @@ def serving_requests(seed=0):
     return requests
 
 
+def served_errors(model, requests, answers, device):
+    """Max abs errors of ``fused_forward``'s answers against the plain
+    chain with the per-sample NaN skip, and of ``InferenceSession`` stepping
+    through each request against the answers' state rows; fails on a
+    non-finite answer."""
+    n_enc = len(model.encoders)
+    session = InferenceSession(model)
+    err_chain = err_session = 0.0
+    for x, (states, outs) in zip(requests, answers):
+        if not all(torch.isfinite(t).all().item() for t in [states, *outs]):
+            raise AssertionError("fused_forward gave non-finite values")
+        B = x[0].shape[0]
+        data = tuple(torch.as_tensor(m, device=device) for m in x)
+        ref_states = forward_chain(
+            model.encoders, model.init_state, model.params, data,
+            torch.ones(B, device=device), order=default_order(n_enc),
+            nan_skip="sample")[0]
+        ref_outs = [dec.apply(model.params["decoders"][d], ref_states)
+                    for d, dec in enumerate(model.decoders)]
+        err_chain = max(err_chain, max_err((states, outs),
+                                           (ref_states, ref_outs)))
+        state = session.init(B)
+        for e in range(n_enc):
+            state, probs = session.step(state, e, x[e])
+            err_session = max(err_session, max_err(
+                (state, [torch.as_tensor(p, device=device) for p in probs]),
+                (states[e + 1], [o[e + 1] for o in outs])))
+    return err_chain, err_session
+
+
 def serve(device):
     model_dir = os.path.join(ROOT, "build", "chip_smoke_model")
     source = mimic_model(device, seed=0)
@@ -385,29 +434,11 @@ def serve(device):
                              f"{len(requests)} fused_forward calls of "
                              f"{per_request} launches")
 
-    err_chain = err_session = 0.0
     n_enc = len(model.encoders)
-    session = InferenceSession(model)
-    for x, (states, outs) in zip(requests, answers):
-        if not all(torch.isfinite(t).all().item() for t in [states, *outs]):
-            raise AssertionError("fused_forward gave non-finite values")
+    for states, _outs in answers:
         if states.shape != (n_enc + 1, SERVING_BATCH, MIMIC_STATE):
             raise AssertionError(f"states shape {tuple(states.shape)}")
-        data = tuple(torch.as_tensor(m, device=device) for m in x)
-        ref_states = forward_chain(
-            model.encoders, model.init_state, model.params, data,
-            torch.ones(SERVING_BATCH, device=device),
-            order=default_order(n_enc), nan_skip="sample")[0]
-        ref_outs = [dec.apply(model.params["decoders"][d], ref_states)
-                    for d, dec in enumerate(model.decoders)]
-        err_chain = max(err_chain, max_err((states, outs),
-                                           (ref_states, ref_outs)))
-        state = session.init(SERVING_BATCH)
-        for e in range(n_enc):
-            state, probs = session.step(state, e, x[e])
-            err_session = max(err_session, max_err(
-                (state, [torch.as_tensor(p, device=device) for p in probs]),
-                (states[e + 1], [o[e + 1] for o in outs])))
+    err_chain, err_session = served_errors(model, requests, answers, device)
     log(f"  fused_forward vs plain chain (nan_skip='sample'): max abs err "
         f"{err_chain:.3e}; InferenceSession vs fused_forward: "
         f"{err_session:.3e} (tol {TOL:g})")
@@ -705,18 +736,12 @@ def check_training(device):
     return runs
 
 
-def profile_training(device, steps=8):
+def profile_steps(model, loader, optimizer, label):
     """Where a training step's time goes: ``torch.profiler`` over one
-    ``train_epoch`` of ``steps`` Adam8bit steps after a warm-up epoch. The
-    device time is the sum of the kernels' own times; the wall time is the
-    host clock around the epoch, synchronised, with the profiler's own cost
-    in it."""
+    ``train_epoch`` of ``loader`` after a warm-up epoch. The device time is
+    the sum of the kernels' own times; the wall time is the host clock
+    around the epoch, synchronised, with the profiler's own cost in it."""
     from torch.profiler import ProfilerActivity, profile
-    _ds, train_set, _ = mimic_training_loaders()
-    loader = ArrayLoader(Subset(train_set.dataset,
-                                train_set.indices[:steps * TRAIN_BATCH]),
-                         TRAIN_BATCH)
-    model, optimizer = mimic_model(device), Adam8bit(ADAM_LR)
     model.train_epoch(loader, optimizer, "cross_entropy")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -725,6 +750,7 @@ def profile_training(device, steps=8):
         model.train_epoch(loader, optimizer, "cross_entropy")
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    steps = loader.n_batches
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -737,10 +763,20 @@ def profile_training(device, steps=8):
                           "ms_per_step": e.self_device_time_total / 1e3
                           / steps, "per_step": e.count / steps}
                          for e in top]}
-    log(f"  profile of {steps} Adam8bit steps: {json.dumps(r)}"
+    log(f"  profile of {steps} {label} steps: {json.dumps(r)}"
         + ("" if device_ms else " (the profiler saw no device time: not "
            "measured)"))
     return r
+
+
+def profile_training(device, steps=8):
+    """Phase 6's profile: ``steps`` Adam8bit steps of the MIMIC model."""
+    _ds, train_set, _ = mimic_training_loaders()
+    loader = ArrayLoader(Subset(train_set.dataset,
+                                train_set.indices[:steps * TRAIN_BATCH]),
+                         TRAIN_BATCH)
+    return profile_steps(mimic_model(device), loader, Adam8bit(ADAM_LR),
+                         "Adam8bit")
 
 
 def check_device_vs_cpu(device):
@@ -962,6 +998,207 @@ def run_protocol(device, patients=None, epochs=PROTOCOL_EPOCHS):
     return results
 
 
+# Phase 9: the six Titanic pipelines at the reference's smoke depth
+# (pipelines/test_all_pipelines.sh:13), the quick-start at its published
+# depth, and the trained MLP-family models served through K1.
+TITANIC_PIPELINES = ("titanic_mlp", "titanic_partitioned",
+                     "titanic_featurewise", "titanic_missingness",
+                     "titanic_lstm", "titanic_rnn")
+TITANIC_EPOCHS, QUICKSTART_EPOCHS = 5, 300
+# K1's Titanic shapes: the pipeline whose trained model each one serves.
+TITANIC_SERVED = (("S=1, MLPEncoder(1, 6, (5, 5))", "titanic_mlp"),
+                  ("S=5, partitions 3 + 2", "titanic_partitioned"),
+                  ("S=5, 5 x 1-feature", "titanic_featurewise"),
+                  ("S=5, 6 x 1-feature, NaN cells", "titanic_missingness"))
+
+
+def titanic_pipeline(name):
+    return importlib.import_module(
+        f"multimodn_tpu_torch.pipelines.titanic.{name}_pipeline")
+
+
+def mean_losses(history, tag):
+    return [float(np.mean(g)) for g in history.loss[tag]]
+
+
+def run_titanic_pipelines(device, work):
+    """The six pipelines through ``common.run`` at 5 epochs, the results
+    CSV on (in ``work``), plots and pickles off; returns (records, trained
+    models)."""
+    from multimodn_tpu_torch.pipelines.titanic import common
+    records, trained = {}, {}
+    for name in TITANIC_PIPELINES:
+        cfg = titanic_pipeline(name).CONFIG
+        t0 = time.perf_counter()
+        model, history = common.run(
+            cfg, os.path.join(work, f"{name}_pipeline.py"),
+            ["-e", str(TITANIC_EPOCHS), "-m", "false", "-y", "false", "-p",
+             "false", "-r", "true"], device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        train, _val, _ = common.split(cfg, 0)
+        steps = TITANIC_EPOCHS * common.loader(cfg, train).n_batches
+        with open(os.path.join(work, "results", f"{name}.csv"),
+                  newline="") as f:
+            rows = list(csv.reader(f))
+        r = {"wall_s": wall, "steps": steps, "steps_per_s": steps / wall,
+             "train_loss": mean_losses(history, "train"),
+             "val_loss": mean_losses(history, "val"),
+             "results_csv_rows": len(rows) - 1}
+        log(f"  {name}: {json.dumps(r)}")
+        if not np.isfinite(r["train_loss"] + r["val_loss"]).all():
+            raise AssertionError(f"{name}: a loss is not finite")
+        if not all(t.device.type == device.type
+                   for t in tree_leaves(model.params)):
+            raise AssertionError(f"{name}: parameters off {device}")
+        if rows[0][0] != "Target" or len(rows) != 1 + len(cfg.targets):
+            raise AssertionError(f"{name}: results CSV {rows[:2]}")
+        records[name], trained[name] = r, model
+    return records, trained
+
+
+def run_quickstart(device):
+    """The quick-start: the titanic_mlp config for 300 epochs of ``fit``
+    with validation, then ``test`` on the validation set."""
+    from multimodn_tpu_torch.pipelines.titanic import common
+    cfg = titanic_pipeline("titanic_mlp").CONFIG
+    train, val, _ = common.split(cfg, 0)
+    model = common.build_model(cfg, 0, device)
+    history = MultiModNHistory(cfg.targets)
+    t0 = time.perf_counter()
+    model.fit(common.loader(cfg, train), Adam(cfg.learning_rate),
+              "cross_entropy", epochs=QUICKSTART_EPOCHS, history=history,
+              val_loader=common.loader(cfg, val))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    f1, auc, acc = model.test(common.loader(cfg, val), "cross_entropy")[0][:3]
+    losses = mean_losses(history, "train")
+    steps = QUICKSTART_EPOCHS * common.loader(cfg, train).n_batches
+    r = {"epochs": QUICKSTART_EPOCHS, "fit_s": fit_s, "steps": steps,
+         "steps_per_s": steps / fit_s, "first_train_loss": losses[0],
+         "last_train_loss": losses[-1],
+         "last_val_loss": mean_losses(history, "val")[-1],
+         "val_auroc": float(auc), "val_f1": float(f1),
+         "val_accuracy": float(acc)}
+    log(f"  quick-start: {json.dumps(r)}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"quick-start: the training loss did not fall "
+                             f"({losses[0]} -> {losses[-1]})")
+    if not np.isfinite(auc):
+        raise AssertionError("quick-start: validation AUROC is not finite")
+    return r, model
+
+
+def serve_titanic(device, trained, work):
+    """Each trained MLP-family model through ``export_model`` ->
+    ``load_model``, then its validation set in requests of 16 rows through
+    ``fused_forward`` (K1), held against the plain chain and
+    ``InferenceSession``; K1 alone timed at B=16 beside its plain version
+    and its bound."""
+    from multimodn_tpu_torch.pipelines.titanic import common
+    out = {}
+    for label, name in TITANIC_SERVED:
+        cfg = titanic_pipeline(name).CONFIG
+        path = os.path.join(work, "export", name)
+        export_model(trained[name], path)
+        model = load_model(path, device=device)
+        for a, b in zip(tree_leaves(trained[name].state_dict()),
+                        tree_leaves(model.state_dict())):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{name}: load_model changed a weight")
+        _train, val, _ = common.split(cfg, 0)
+        xs, _y, _ = val.dataset.arrays()
+        rows = np.asarray(val.indices)
+        requests = [[m[rows[i:i + SERVING_BATCH]] for m in xs]
+                    for i in range(0, len(rows), SERVING_BATCH)]
+        spec = ChainSpec(model.encoders, model.decoders, model.state_size)
+        torch.cuda.synchronize()
+        FUSED_CHAIN.launches = 0
+        answers = [model.fused_forward(x) for x in requests]
+        torch.cuda.synchronize()
+        launches = FUSED_CHAIN.launches
+        if launches != spec.launches * len(requests):
+            raise AssertionError(
+                f"{name}: K1 launched {launches} times for {len(requests)} "
+                f"requests of {spec.launches} launches")
+        nan_cells = int(sum(np.isnan(m).any(axis=1).sum()
+                            for x in requests for m in x))
+        err_chain, err_session = served_errors(model, requests, answers,
+                                               device)
+        if not (err_chain <= TOL and err_session <= TOL):
+            raise AssertionError(f"{name}: served answers disagree with "
+                                 f"the plain chain ({err_chain}, "
+                                 f"{err_session})")
+        # K1 alone at the serving batch, on the first request's inputs.
+        data = model._to_device(requests[0])
+        valid = torch.stack([~torch.isnan(m).any(dim=1) for m in data],
+                            dim=1).float()
+        data = tuple(torch.nan_to_num(m).contiguous() for m in data)
+        init_row = model.params["init_state"]["value"][0].contiguous()
+        layers = spec.layer_params(model.params)
+        ms, per_call = time_counted(lambda: FUSED_CHAIN.launch(
+            spec, layers, data, valid, init_row), FUSED_CHAIN)
+        plain_ms = time_ms(lambda: fused_chain_forward_ref(
+            spec, model.params, data, valid, init_row))
+        bound_ms, bound_by, flops, nbytes = bound(spec, SERVING_BATCH)
+        r = {"pipeline": name, "requests": len(requests),
+             "rows": len(rows), "nan_cells": nan_cells,
+             "launches": launches, "launches_per_request": spec.launches,
+             "max_abs_err": err_chain, "session_max_abs_err": err_session,
+             "batch": SERVING_BATCH, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+             "bytes": nbytes}
+        log(f"  K1 at {label}: {json.dumps(r)}")
+        if per_call != spec.launches:
+            raise AssertionError(f"{name}: {per_call} launches per timed "
+                                 f"call, the plan gives {spec.launches}")
+        out[label] = r
+    return out
+
+
+def profile_titanic(device, steps=8):
+    """``steps`` training steps of the quick-start and of the LSTM
+    pipeline's model (``Adam``, batch 32) under ``torch.profiler``."""
+    from multimodn_tpu_torch.pipelines.titanic import common
+    out = {}
+    for name in ("titanic_mlp", "titanic_lstm"):
+        cfg = titanic_pipeline(name).CONFIG
+        train, _val, _ = common.split(cfg, 0)
+        loader = ArrayLoader(Subset(train.dataset, train.indices[
+            :steps * cfg.batch_size]), cfg.batch_size)
+        out[name] = profile_steps(common.build_model(cfg, 0, device), loader,
+                                  Adam(cfg.learning_rate), f"{name} Adam")
+    return out
+
+
+def run_titanic(device):
+    """Phase 9: the Titanic pipelines, the quick-start and its serving."""
+    if foreign_modules():
+        raise AssertionError(f"loaded before phase 9: {foreign_modules()}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_titanic_")
+    try:
+        torch.cuda.synchronize()
+        FUSED_CHAIN.launches = FUSED_ADAM.launches = 0
+        pipelines, trained = run_titanic_pipelines(device, work)
+        quick, trained["titanic_mlp"] = run_quickstart(device)
+        torch.cuda.synchronize()
+        if (FUSED_CHAIN.launches, FUSED_ADAM.launches) != (0, 0):
+            raise AssertionError(
+                f"training launched the fused kernels "
+                f"{(FUSED_CHAIN.launches, FUSED_ADAM.launches)} times; it "
+                f"runs the plain chain and Adam")
+        profiles = profile_titanic(device)
+        served = serve_titanic(device, trained, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if foreign_modules():
+        raise AssertionError(f"loaded by phase 9: {foreign_modules()}")
+    log(f"  pandas, scikit-learn, JAX and the JAX package not loaded; "
+        f"every parameter on {device}")
+    return {"pipelines": pipelines, "quickstart": quick, "served": served,
+            "profile": profiles}
+
+
 def build_kernels():
     """Build every kernel library at once (one nvcc per source)."""
     with ThreadPoolExecutor(max_workers=2) as pool:
@@ -1042,6 +1279,10 @@ def main(argv=None) -> int:
     log(card_line())
     protocol = run_protocol(device, args.patients, args.epochs)
 
+    log("== phase 9: Titanic")
+    log(card_line())
+    titanic = run_titanic(device)
+
     main_b = mimic[SERVING_BATCH]
     entry = {
         "name": "fused_chain",
@@ -1063,6 +1304,10 @@ def main(argv=None) -> int:
             "max_abs_err", "ms", "launches", "plain_ms", "bound_ms",
             "bound_by", "stage_ms", "small_tiles_ms") if k in r}
                      for B, r in mimic.items()},
+        "titanic": {label: {k: r[k] for k in (
+            "pipeline", "requests", "launches", "launches_per_request",
+            "max_abs_err", "batch", "ms", "plain_ms", "bound_ms",
+            "bound_by")} for label, r in titanic["served"].items()},
     }
     step = adam["times"]["mimic_step"]
     adam_entry = {
@@ -1095,6 +1340,8 @@ def main(argv=None) -> int:
     log("earlier designs (not measured in this run): "
         + json.dumps(EARLIER))
     log("protocol: " + json.dumps(protocol))
+    log("titanic: " + json.dumps({k: titanic[k] for k in (
+        "pipelines", "quickstart", "profile")}))
     log(json.dumps({"kernels": [entry, adam_entry]}))
     log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
     log(card)

@@ -7,16 +7,19 @@ the JAX package's. Entry points run on CUDA unless the caller passes
 ``device="cpu"``; on a CPU tensor each kernel wrapper runs its plain PyTorch
 version, on a CUDA tensor it launches the hand-written kernel or raises.
 
-Ported so far: the MLP-family encoders, dense decoders, init states, the
-unrolled fusion chain, ``MultiModN`` inference (``predict``,
-``predict_proba``, ``fused_forward`` through ``csrc/fused_chain.cu``) and
-training (``train_epoch``, ``test``, ``fit``, ``fit_best``) with ``Adam`` and
-``Adam8bit`` (whose update is ``csrc/fused_adam.cu``), ``ArrayLoader``,
-``MultiModNHistory``, ``InferenceSession`` and ``export_model`` /
-``load_model``; and the MIMIC experiment protocol without pandas or
-scikit-learn: ``data.mimic`` / ``data.synth`` / ``data.kfold``, the HAIM
-baseline (``baselines``), ``experiments.kfold_fit_best``, ``checkpoint``
-and the three MIMIC pipelines (``pipelines.mimic``).
+Ported so far: the MLP-family, SLP and recurrent (LSTM, RNN) encoders,
+dense decoders, init states, the unrolled fusion chain, ``MultiModN``
+inference (``predict``, ``predict_proba``, ``fused_forward`` through
+``csrc/fused_chain.cu``, ``get_states``), training (``train_epoch``,
+``test``, ``fit``, ``fit_best``) with ``Adam``, ``Adam8bit`` (whose update
+is ``csrc/fused_adam.cu``), ``SGD`` and ``AdamW``, ``ArrayLoader``,
+``MultiModNHistory``, ``InferenceSession``, ``export_model`` /
+``load_model`` and pickled models; the MIMIC experiment protocol
+(``data.mimic`` / ``data.synth`` / ``data.kfold``, the HAIM baseline in
+``baselines``, ``experiments.kfold_fit_best``, ``checkpoint``, the three
+MIMIC pipelines in ``pipelines.mimic``) and the Titanic data and six
+Titanic pipelines (``data.titanic``, ``pipelines.titanic``), without pandas
+or scikit-learn.
 """
 from multimodn_tpu_torch.convert import opt_state_from_jax, params_from_jax
 from multimodn_tpu_torch.core.history import MultiModNHistory
@@ -26,7 +29,7 @@ from multimodn_tpu_torch.core.state import (
     TrainableInitState,
 )
 from multimodn_tpu_torch.model import MultiModN
-from multimodn_tpu_torch.optim import Adam, Adam8bit, Optimizer
+from multimodn_tpu_torch.optim import SGD, Adam, Adam8bit, AdamW, Optimizer
 from multimodn_tpu_torch.serving import (
     InferenceSession,
     export_model,
@@ -44,6 +47,8 @@ __all__ = [
     "Optimizer",
     "Adam",
     "Adam8bit",
+    "AdamW",
+    "SGD",
     "InferenceSession",
     "export_model",
     "load_model",

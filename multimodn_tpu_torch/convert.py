@@ -78,16 +78,31 @@ def params_to_numpy(params: dict) -> dict:
     return tree_map(lambda t: t.detach().cpu().numpy().copy(), params)
 
 
-def opt_state_from_jax(state: dict, device=None) -> dict:
-    """A JAX ``Adam`` or ``Adam8bit`` optimizer state (``model.opt_state``,
-    with per-encoder or scan-stacked storage) -> the state of this
-    package's optimizer of the same name, on ``device``: the moment trees
+def _optax_fields(state) -> dict:
+    """An optax chain state (nested tuples of ``NamedTuple`` states) -> its
+    fields by name; empty states add none."""
+    if hasattr(state, "_asdict"):
+        return dict(state._asdict())
+    out = {}
+    for part in state:
+        out.update(_optax_fields(part))
+    return out
+
+
+def opt_state_from_jax(state, device=None) -> dict:
+    """A JAX optimizer state (``model.opt_state``, with per-encoder or
+    scan-stacked storage) -> the state of this package's optimizer of the
+    same name, on ``device``. ``Adam`` / ``Adam8bit``: the moment trees
     (``m``/``v`` or ``mq``/``ms``/``vq``/``vs``, codes keeping their 8-bit
-    type), the step count ``t`` and the per-encoder counts ``t_enc``."""
+    type), the step count ``t`` and the per-encoder counts ``t_enc``.
+    ``SGD`` / ``AdamW`` (optax chains): optax's fields, ``trace`` or
+    ``count``/``mu``/``nu``."""
     device = resolve_device(device)
+    if not isinstance(state, dict):
+        state = _optax_fields(state)
     out = {}
     for key, tree in state.items():
-        if key == "t":
+        if key in ("t", "count"):
             out[key] = _tensor(tree, device).float()
         elif key == "t_enc":
             counts = None if tree is None else \

@@ -4,16 +4,20 @@
 Same public surface and field names as the reference ``MultiModNHistory``:
 per-tag dicts of per-epoch ``(E+1, D)`` ndarrays for loss / accuracy /
 sensitivity / specificity / balanced_accuracy, plus a ``state_change_loss``
-list of ``(E,)`` arrays. ``get_results`` builds the per-target DataFrame from
-the last epoch's last encoder row; pandas is imported there, not at import
-time, so training needs no pandas. ``plot`` works with a single tag too
-(quirk #15).
+list of ``(E,)`` arrays. The results table holds the last epoch's last
+encoder row per target: ``print_results`` prints it and ``save_results``
+writes it as the JAX package's pandas CSV, both without pandas;
+``get_results`` returns it as a DataFrame and imports pandas when called.
+``plot`` imports matplotlib when called (an ``ImportError`` where it is
+missing) and works with a single tag too (quirk #15).
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
 import numpy as np
+
+from multimodn_tpu_torch.data.table import format_column, write_rows
 
 
 class MultiModNHistory:
@@ -94,39 +98,60 @@ class MultiModNHistory:
         fig.savefig(filepath)
         plt.close(fig)
 
-    def get_results(self):
-        """The last epoch's final-encoder-row metrics per target, as a
-        pandas DataFrame."""
-        import pandas as pd
-
+    def _results(self):
+        """``(columns, results)``: the last epoch's final-encoder-row metric
+        per target (rows) and per tag and metric (columns), float64, after
+        the state change loss column. Never-populated tags (the pre-created
+        empty 'train' when only evaluation epochs were recorded) are
+        skipped."""
         stores = {
             name: {k: v for k, v in store.items() if len(v) > 0}
             for name, store in self._metric_stores.items()
-        }  # skip never-populated tags (e.g. the pre-created empty 'train')
+        }
         n_metrics = sum(len(s) for s in stores.values()) + 1
         results = np.zeros((len(self.decoder_names), n_metrics))
         columns = ["State change loss"]
-        # State change loss: same value for each target row (history.py:108).
-        last_sc = self.state_change_loss[-1][-1] if self.state_change_loss else 0.0
-        results[:, 0] = last_sc
-
+        # The same value in each target's row (history.py:108).
+        results[:, 0] = self.state_change_loss[-1][-1] \
+            if self.state_change_loss else 0.0
         col = 1
         for name, store in stores.items():
             for key, value in store.items():
                 columns.append(f"{display_title(key)} {name.replace('_', ' ')}")
-                for i in range(len(self.decoder_names)):
-                    results[i, col] = value[-1][-1][i]
+                results[:, col] = value[-1][-1]
                 col += 1
+        return columns, results
 
+    def get_results(self):
+        """The results table as a pandas DataFrame indexed by target name;
+        pandas is imported here, as the JAX package's API returns one."""
+        import pandas as pd
+
+        columns, results = self._results()
         df = pd.DataFrame(results, columns=columns)
         df.index = self.decoder_names
         return df
 
     def print_results(self):
-        print(self.get_results())
+        """Print the results table: one row per target, one column per tag
+        and metric."""
+        columns, results = self._results()
+        cells = [["Target"] + columns] + [
+            [name] + [f"{v:.6g}" for v in row]
+            for name, row in zip(self.decoder_names, results)]
+        widths = [max(len(r[c]) for r in cells) for c in range(len(cells[0]))]
+        for r in cells:
+            print("  ".join([r[0].ljust(widths[0])] + [
+                v.rjust(w) for v, w in zip(r[1:], widths[1:])]))
 
     def save_results(self, path):
-        self.get_results().to_csv(path, index_label="Target")
+        """Write the results table as CSV, byte for byte the JAX package's
+        ``get_results().to_csv(path, index_label="Target")``."""
+        columns, results = self._results()
+        with open(path, "w", newline="") as f:
+            write_rows(f, ["Target"] + columns,
+                       [[str(n) for n in self.decoder_names]]
+                       + [format_column(c) for c in results.T])
 
 
 def display_title(key: str) -> str:

@@ -28,18 +28,21 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def uniform_init(generator: torch.Generator, shape, bound: float,
+                 device=None) -> torch.Tensor:
+    """U(-bound, +bound) float32 of ``shape``, drawn on the CPU so a seed
+    gives the same weights on every device."""
+    u = torch.rand(shape, generator=generator, dtype=torch.float32)
+    return ((u * 2.0 - 1.0) * bound).to(device)
+
+
 def dense_init(generator: torch.Generator, in_dim: int, out_dim: int,
                device=None) -> dict:
     """Linear layer params with torch.nn.Linear's default init distribution,
-    stored ``(in, out)``. Drawn on the CPU so a seed gives the same weights
-    on every device."""
+    stored ``(in, out)``."""
     bound = 1.0 / (in_dim ** 0.5) if in_dim > 0 else 0.0
-
-    def uniform(shape):
-        u = torch.rand(shape, generator=generator, dtype=torch.float32)
-        return ((u * 2.0 - 1.0) * bound).to(device)
-
-    return {"w": uniform((in_dim, out_dim)), "b": uniform((out_dim,))}
+    return {"w": uniform_init(generator, (in_dim, out_dim), bound, device),
+            "b": uniform_init(generator, (out_dim,), bound, device)}
 
 
 def dense_apply(params: dict, x: torch.Tensor) -> torch.Tensor:

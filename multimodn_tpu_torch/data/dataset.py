@@ -1,6 +1,8 @@
-"""Dataset protocol (copy of the numpy-only part of
-``multimodn_tpu/data/dataset.py``): a sample is ``(list of per-modality
-arrays, targets[, encoding sequence])``.
+"""Dataset protocol (copy of ``multimodn_tpu/data/dataset.py``, which is
+numpy only): a sample is ``(list of per-modality arrays, targets[, encoding
+sequence])``. ``PartitionDataset`` cuts feature columns into modality
+blocks, ``FeatureWiseDataset`` makes one modality per column and
+``JointDatasets`` zips datasets.
 
 ``random_split`` reproduces the reference's seeded, optionally
 class-balanced split (``multimod_dataset.py:14-52``) exactly: a
@@ -107,3 +109,45 @@ class PartitionDataset(MultiModDataset):
     def arrays(self):
         """All modalities at once, for ``ArrayLoader``'s fast path."""
         return list(self.X), self.y, None
+
+
+class FeatureWiseDataset(PartitionDataset):
+    """One modality per feature column (reference ``multimod_dataset.py:91-95``)."""
+
+    def __init__(self, X: np.ndarray, y: np.ndarray):
+        super().__init__(X, y, [1] * np.asarray(X).shape[1])
+
+
+class JointDatasets(MultiModDataset):
+    """Zips aligned datasets; each dataset's modalities concatenate into one
+    (reference ``multimod_dataset.py:98-114``)."""
+
+    def __init__(self, datasets: List):
+        if not all(len(d) == len(datasets[0]) for d in datasets):
+            raise ValueError("Datasets must have the same length")
+        self.datasets = datasets
+
+    def __len__(self) -> int:
+        return len(self.datasets[0])
+
+    def __getitem__(self, idx: int):
+        tensor_array = [
+            np.concatenate([np.asarray(a).reshape(-1) for a in dataset[idx][0]])
+            for dataset in self.datasets
+        ]
+        return tensor_array, self.datasets[0][idx][1]
+
+
+def split_into_partition_datasets(X, y, partitions) -> List[PartitionDataset]:
+    """One PartitionDataset per partition block (reference
+    ``titanic_dataset.py:60-67`` / ``mimic_dataset.py`` split_dataset). The
+    message's Expected/got operands are swapped, as in the reference."""
+    if partitions is None:
+        partitions = [X.shape[1]]
+    if sum(partitions) != X.shape[1]:
+        raise ValueError(
+            "Paritions sum doesn't match data dimension. "
+            "Expected: {}, got: {}".format(sum(partitions), X.shape[1]))
+    X_split = np.split(X, list(accumulate(partitions[:-1])), axis=1)
+    return [PartitionDataset(X_split[i], y, [p])
+            for i, p in enumerate(partitions)]

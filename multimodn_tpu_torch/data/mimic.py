@@ -23,9 +23,11 @@ from uuid import uuid4
 import numpy as np
 
 from multimodn_tpu_torch.data.dataset import (
+    FeatureWiseDataset,
     PartitionDataset,
     _seeded_permutation,
     _split_indices,
+    split_into_partition_datasets,
 )
 from multimodn_tpu_torch.data.kfold import StandardScaler
 from multimodn_tpu_torch.data.synth import (
@@ -35,6 +37,8 @@ from multimodn_tpu_torch.data.synth import (
     synthetic_mimic_embeddings,
 )
 from multimodn_tpu_torch.data.table import (
+    get_dummies,
+    missing,
     read_csv,
     read_numeric_csv,
     write_csv,
@@ -103,19 +107,10 @@ def _take(table: dict, rows) -> dict:
     return {k: v[rows] for k, v in table.items()}
 
 
-def _missing(col: np.ndarray) -> np.ndarray:
-    if col.dtype.kind == "f":
-        return np.isnan(col)
-    if col.dtype.kind == "O":
-        return np.array([v is None or (isinstance(v, float) and v != v)
-                         for v in col], dtype=bool)
-    return np.zeros(col.shape, dtype=bool)
-
-
 def _drop_duplicates(table: dict, subset) -> dict:
     """Keep the first row of each distinct ``subset`` key (NaN equal to
     NaN, as pandas' ``drop_duplicates``)."""
-    cols = [(table[c].tolist(), _missing(table[c])) for c in subset]
+    cols = [(table[c].tolist(), missing(table[c])) for c in subset]
     seen, keep = set(), []
     for i in range(len(table[subset[0]])):
         key = tuple(None if nan[i] else vals[i] for vals, nan in cols)
@@ -133,29 +128,11 @@ def _isin01(col: np.ndarray) -> np.ndarray:
                     dtype=bool)
 
 
-def _get_dummies(table: dict, columns, drop_first: bool = True) -> dict:
-    """``pd.get_dummies(df, columns=columns, drop_first=..., dtype=int)``:
-    the listed columns leave their places, and one int column per category
-    (sorted, the first dropped) is appended per listed column, named
-    ``<column>_<category>``; a missing value sets none."""
-    out = {k: v for k, v in table.items() if k not in columns}
-    for c in columns:
-        col = table[c]
-        present = col[~_missing(col)]
-        cats = np.unique(present) if col.dtype.kind != "O" else \
-            np.array(sorted(set(present.tolist())), dtype=object)
-        if drop_first:
-            cats = cats[1:]
-        for v in cats:
-            out[f"{c}_{v}"] = (col == v).astype(np.int64)
-    return out
-
-
 def _patient_table(haim_id: np.ndarray, agg: np.ndarray) -> dict:
     """``df.groupby('haim_id').agg(label_count=('Agg', 'count'),
     label_ones=('Agg', 'sum'))`` with ``label = ones >= count / 2``, ids
     sorted, rows without an id dropped."""
-    ok = ~_missing(haim_id)
+    ok = ~missing(haim_id)
     ids, inverse = np.unique(haim_id[ok], return_inverse=True)
     counts = np.bincount(inverse, minlength=len(ids)).astype(np.int64)
     ones = np.zeros(len(ids), dtype=agg.dtype)
@@ -212,7 +189,8 @@ def build_mimic_cache(
         else:
             table["Agg"] = table[targets[0]].astype(np.int64)
         if "de" in [s.lower() for s in sources]:
-            table = _get_dummies(table, _DEMOGRAPHICS)
+            table = get_dummies(table, _DEMOGRAPHICS, drop_first=True,
+                                dtype=np.int64)
     features, _ = _source_features(list(table), sources)
     data_full = {c: table[c] for c in features + list(targets) + ["haim_id"]}
     patient = _patient_table(table["haim_id"], table["Agg"])
@@ -364,3 +342,10 @@ class MIMICDataset:
     def partition_dataset(self, partitions: Optional[List[int]] = None
                           ) -> PartitionDataset:
         return PartitionDataset(self.X, self.y, partitions)
+
+    def featurewise_dataset(self) -> FeatureWiseDataset:
+        return FeatureWiseDataset(self.X, self.y)
+
+    def split_dataset(self, partitions: Optional[List[int]] = None
+                      ) -> List[PartitionDataset]:
+        return split_into_partition_datasets(self.X, self.y, partitions)

@@ -1,12 +1,13 @@
-"""Deterministic synthetic MIMIC data (copy of the MIMIC part of
+"""Deterministic synthetic Titanic and MIMIC data (copy of
 ``multimodn_tpu/data/synth.py``, without pandas).
 
-The HAIM embeddings file the MIMIC pipelines read is private; this generator
-gives a schema-exact, label-correlated stand-in. It draws from the same
+The Titanic CSV is fetched from the network and the HAIM embeddings file the
+MIMIC pipelines read is private; these generators give schema-exact,
+label-correlated stand-ins. Each draws from the same
 ``numpy.random.default_rng`` stream in the same order as the JAX package's
-generator, so every column is bit-equal to its frame's. The result is an
-ordered column table: a dict from column name to a 1-D numpy array, in the
-frame's column order.
+generator, so every column is equal to its frame's. The result is an ordered
+column table: a dict from column name to a 1-D numpy array, in the frame's
+column order, strings in object columns with NaN where a value is missing.
 """
 from __future__ import annotations
 
@@ -28,6 +29,54 @@ SYNTH_MIMIC_VERSION = 2
 
 # The post-ReLU neural-embedding blocks: non-negative, weakly informative.
 _EMBED_BLOCKS = {"vd", "vmd", "n_ecg", "n_ech", "n_rad"}
+
+
+def synthetic_titanic(n: int = 891, seed: int = 1912) -> dict:
+    """Titanic-schema table with the real file's missingness (~20% of Age,
+    ~77% of Cabin, 2 Embarked) and a learnable survival signal driven by
+    sex, class, age and fare, as in the real data."""
+    rng = np.random.default_rng(seed)
+    pclass = rng.choice([1, 2, 3], size=n, p=[0.24, 0.21, 0.55])
+    sex = rng.choice(["male", "female"], size=n, p=[0.65, 0.35])
+    age = np.clip(rng.normal(29, 14, size=n), 0.4, 80).round(1)
+    sibsp = rng.choice([0, 1, 2, 3, 4], size=n,
+                       p=[0.68, 0.23, 0.05, 0.02, 0.02])
+    parch = rng.choice([0, 1, 2, 3], size=n, p=[0.76, 0.13, 0.09, 0.02])
+    fare = np.round(np.exp(rng.normal(2.5, 1.0, size=n)) * (4 - pclass), 4)
+    embarked = rng.choice(["S", "C", "Q"], size=n,
+                          p=[0.72, 0.19, 0.09]).astype(object)
+
+    logit = (1.3 * (sex == "female") - 0.9 * (pclass - 2)
+             - 0.02 * (age - 29) + 0.004 * np.minimum(fare, 100)
+             - 0.2 * (sibsp + parch > 2) + rng.normal(0, 0.8, size=n))
+    survived = (logit > 0).astype(np.int64)
+
+    age = age.astype(object)
+    age[rng.random(n) < 0.199] = np.nan
+    # One draw of the deck, then one of the number, per row.
+    cabin = np.array(
+        ["%s%d" % (rng.choice(list("ABCDEFG")), rng.integers(1, 130))
+         for _ in range(n)], dtype=object)
+    cabin[rng.random(n) < 0.771] = np.nan
+    embarked[rng.choice(n, size=2, replace=False)] = np.nan
+
+    names = [f"Passenger, {'Mr.' if s == 'male' else 'Mrs.'} Synth {i}"
+             for i, s in enumerate(sex)]
+    tickets = [f"ST/{rng.integers(10000, 99999)}" for _ in range(n)]
+    return {
+        "PassengerId": np.arange(1, n + 1),
+        "Survived": survived,
+        "Pclass": pclass,
+        "Name": np.array(names, dtype=object),
+        "Sex": sex.astype(object),
+        "Age": age,
+        "SibSp": sibsp,
+        "Parch": parch,
+        "Ticket": np.array(tickets, dtype=object),
+        "Fare": fare,
+        "Cabin": cabin,
+        "Embarked": embarked,
+    }
 
 
 def synthetic_mimic_embeddings(

@@ -29,6 +29,35 @@ NA_STRINGS = frozenset([
     "nan", "null"])
 
 
+def missing(col: np.ndarray) -> np.ndarray:
+    """Where a column holds NaN or None (pandas' ``isna``)."""
+    if col.dtype.kind == "f":
+        return np.isnan(col)
+    if col.dtype.kind == "O":
+        return np.array([v is None or (isinstance(v, float) and v != v)
+                         for v in col], dtype=bool)
+    return np.zeros(col.shape, dtype=bool)
+
+
+def get_dummies(table: Dict[str, np.ndarray], columns, drop_first: bool,
+                dtype=bool) -> Dict[str, np.ndarray]:
+    """``pd.get_dummies(df, columns=columns, drop_first=..., dtype=...)``:
+    the listed columns leave their places, and one column per category
+    (sorted, the first dropped when ``drop_first``) is appended per listed
+    column, named ``<column>_<category>``; a missing value sets none."""
+    out = {k: v for k, v in table.items() if k not in columns}
+    for c in columns:
+        col = table[c]
+        present = col[~missing(col)]
+        cats = np.unique(present) if col.dtype.kind != "O" else \
+            np.array(sorted(set(present.tolist())), dtype=object)
+        if drop_first:
+            cats = cats[1:]
+        for v in cats:
+            out[f"{c}_{v}"] = (col == v).astype(dtype)
+    return out
+
+
 def format_value(v) -> str:
     """One value's CSV field, as pandas writes it in a column of the
     value's own type."""

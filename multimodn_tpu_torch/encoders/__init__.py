@@ -5,6 +5,17 @@ from multimodn_tpu_torch.encoders.mlp import (
     MLPEncoder,
     MLPFeatureEncoder,
 )
+from multimodn_tpu_torch.encoders.recurrent import (
+    LSTMEncoder,
+    LSTMFeatureEncoder,
+    RNNEncoder,
+    RNNFeatureEncoder,
+)
+from multimodn_tpu_torch.encoders.slp import (
+    LinearEncoder,
+    LogisticEncoder,
+    SLPEncoder,
+)
 
 __all__ = [
     "MultiModEncoder",
@@ -12,4 +23,11 @@ __all__ = [
     "MLPFeatureEncoder",
     "MIMICMLPEncoder",
     "MIMIC_MLPEncoder",
+    "SLPEncoder",
+    "LinearEncoder",
+    "LogisticEncoder",
+    "LSTMEncoder",
+    "RNNEncoder",
+    "LSTMFeatureEncoder",
+    "RNNFeatureEncoder",
 ]

@@ -7,8 +7,8 @@ on its device, in the JAX package's layout (per-encoder lists, dense weights
 the JAX package as plain copies.
 
 Inference: ``predict`` / ``predict_proba`` on per-modality arrays or a
-loader (no NaN skip, quirk #9) and ``fused_forward`` through the fused-chain
-CUDA kernel. Training: ``train_epoch``, ``test``, ``fit`` and ``fit_best``
+loader (no NaN skip, quirk #9), ``fused_forward`` through the fused-chain
+CUDA kernel, and ``get_states``. Training: ``train_epoch``, ``test``, ``fit`` and ``fit_best``
 on the unrolled chain, one Python loop over batches per epoch with one host
 transfer per epoch; the optimizer state lives in ``opt_state``. The
 ``StaticInitState`` cycle continues across every call, as the reference's
@@ -45,6 +45,7 @@ from multimodn_tpu_torch.core.step import (
 from multimodn_tpu_torch.core.tree import tree_map
 from multimodn_tpu_torch.ops.fused_chain import ChainSpec, fused_chain_forward
 from multimodn_tpu_torch.optim import Optimizer
+from multimodn_tpu_torch.utils.summary import summarize_model
 
 
 class MultiModN:
@@ -257,6 +258,25 @@ class MultiModN:
             self.params["init_state"], 1, 0)[0].contiguous()
         return fused_chain_forward(self._chain_spec, self.params, data,
                                    valid, init_row)
+
+    @torch.no_grad()
+    def get_states(self, loader) -> List[np.ndarray]:
+        """The final fusion state of every sample of ``loader``, with the
+        model's NaN skip and the padded rows dropped (reference
+        ``multimodn.py:460-492``); a ``StaticInitState`` cycle advances by
+        the loader's samples, as in every other call."""
+        fwd = make_forward_fn(self.encoders, self.decoders, self.init_state,
+                              self._resolve_order(loader=loader),
+                              self.nan_skip)
+        data, _targets, mask = loader.stacks(self.device)
+        offset, states = self._cycle_base(), []
+        for b, n_real in enumerate(loader.batch_counts()):
+            final = fwd(self.params, tuple(d[b] for d in data), mask[b],
+                        init_offset=offset)[3]
+            offset += n_real
+            states.append(final[mask[b] > 0])
+        self._advance_cycle(loader.n_samples)
+        return list(torch.cat(states).cpu().numpy())
 
     # ------------------------------------------------------------------
     # Training / evaluation
@@ -501,8 +521,29 @@ class MultiModN:
         return info, train_sums, val_sums
 
     # ------------------------------------------------------------------
-    # Persistence
+    # Introspection and persistence
     # ------------------------------------------------------------------
+    def display_arch(self, input=None):
+        """Print the per-module parameter table (``utils.summary``);
+        ``input`` is accepted for the reference's signature and unused."""
+        print(summarize_model(self))
+
+    def __getstate__(self):
+        """Pickle support (the pipelines pickle whole models, as the
+        reference's ``titanic_mlp_pipeline.py:96`` does): the kernel plan
+        and the optimizer and its state stay behind, as in the JAX model,
+        and the parameters travel as numpy arrays."""
+        state = self.__dict__.copy()
+        state["_chain_spec"] = None
+        state["_opt"] = None
+        state["opt_state"] = None
+        state["params"] = params_to_numpy(self.params)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.params = params_from_jax(self.params, self.device)
+
     def state_dict(self) -> dict:
         """The parameter tree as numpy arrays, in the JAX package's
         ``state_dict`` layout."""

@@ -1,5 +1,6 @@
-"""Optimizers with torch's default hyperparameters and torch's structural
-skip (PyTorch twin of ``multimodn_tpu/optim.py``).
+"""Optimizers (PyTorch twin of ``multimodn_tpu/optim.py``): ``Adam`` and
+``Adam8bit`` with torch's default hyperparameters and torch's structural
+skip, and ``SGD`` / ``AdamW`` with optax's arithmetic and no skip.
 
 The reference builds ``torch.optim.Adam(model.parameters(), lr)`` and zeroes
 gradients to None before each backward. An encoder that a batch NaN-skips
@@ -12,7 +13,7 @@ encoder, given under ``nan_skip='batch'``): a gated-off encoder keeps its
 moments and its own step count. The other parameters form one group with
 one step count.
 
-An optimizer's state is a dict of trees shaped like the parameters plus the
+An Adam optimizer's state is a dict of trees shaped like the parameters plus the
 step counts ``t`` (0-D tensor) and ``t_enc`` (one 0-D tensor per encoder),
 all on the parameters' device; the model owns it. The bias corrections are
 computed on the device from those counts, so a step never reads the host.
@@ -203,3 +204,61 @@ class Adam8bit(Optimizer):
         fa.multi_leaf_update(leaves, lr=self.lr, b1=self.b1, b2=self.b2,
                              eps=self.eps, fmt=self.fmt)
         return dict(state, t=t, t_enc=t_enc)
+
+
+class SGD(Optimizer):
+    """``optax.sgd``: the update is ``-lr * g``; with ``momentum`` a trace
+    ``g + momentum * trace`` takes the gradient's place. Like every plain
+    optax transformation in the JAX package (``core/step.py::_tx_update``),
+    it takes no ``enc_gates``: an encoder that a batch skipped gets its zero
+    gradient like any other parameter."""
+
+    def __init__(self, learning_rate: float, momentum: float = 0.0):
+        self.lr, self.momentum = learning_rate, momentum
+
+    def init(self, params):
+        return {"trace": tree_map(torch.zeros_like, params)} \
+            if self.momentum else {}
+
+    def update(self, grads, state, params=None, enc_gates=None):
+        if not self.momentum:
+            return tree_map(lambda g: -self.lr * g, grads), state
+        trace = tree_map(lambda g, t: g + self.momentum * t, grads,
+                         state["trace"])
+        return tree_map(lambda t: -self.lr * t, trace), {"trace": trace}
+
+
+class AdamW(Optimizer):
+    """``optax.adamw``: Adam's moments ``(1 - b) * g^k + b * moment``, the
+    bias-corrected ratio ``m_hat / (sqrt(v_hat) + eps)``, then ``+
+    weight_decay * p``, then ``* -lr``. One step count ``count`` for every
+    parameter, and no ``enc_gates``, as ``SGD``. The state's keys are
+    optax's field names (``count``, ``mu``, ``nu``)."""
+
+    def __init__(self, learning_rate: float,
+                 betas: Tuple[float, float] = (0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 0.01):
+        self.lr, (self.b1, self.b2), self.eps = learning_rate, betas, eps
+        self.weight_decay = weight_decay
+
+    def init(self, params):
+        return {"count": torch.zeros((), device=_device(params)),
+                "mu": tree_map(torch.zeros_like, params),
+                "nu": tree_map(torch.zeros_like, params)}
+
+    def update(self, grads, state, params=None, enc_gates=None):
+        if params is None:
+            raise ValueError("AdamW's weight decay needs the parameters")
+        b1, b2 = self.b1, self.b2
+        count = state["count"] + 1.0
+        c1, c2 = _bias_corrections(b1, b2, count)
+
+        def leaf(g, m, v, p):
+            m = (1 - b1) * g + b1 * m
+            v = (1 - b2) * g ** 2 + b2 * v
+            u = (m / c1) / (torch.sqrt(v / c2) + self.eps)
+            return -self.lr * (u + self.weight_decay * p), m, v
+
+        upd, mu, nu = _walk(leaf, [grads, state["mu"], state["nu"], params],
+                            3)
+        return upd, {"count": count, "mu": mu, "nu": nu}

@@ -1,0 +1,24 @@
+"""Titanic RNN pipeline (PyTorch twin of
+``pipelines/titanic/titanic_rnn_pipeline.py``): one RNNEncoder(state=1,
+hidden=(5, 5)) in the reference-parity unbatched recurrence mode (quirk
+#8).
+
+    python -m multimodn_tpu_torch.pipelines.titanic.titanic_rnn_pipeline -e 5 -m false -y false -p false -r false
+
+runs on the GPU; ``main(argv, device="cpu")`` runs on the CPU.
+"""
+from multimodn_tpu_torch.encoders import RNNEncoder
+from multimodn_tpu_torch.pipelines.titanic.common import TitanicConfig, run
+
+CONFIG = TitanicConfig(
+    features=["Fare", "Pclass", "Age", "Sex_male", "Relatives", "Embarked"],
+    make_encoders=lambda s, feats: [RNNEncoder(s, len(feats), (5, 5))],
+)
+
+
+def main(argv=None, device=None):
+    return run(CONFIG, __file__, argv, device)
+
+
+if __name__ == "__main__":
+    main()

@@ -42,3 +42,6 @@ def string_to_bool(s):
 def extract_pipeline_name(filename: str) -> str:
     return filename.split("/")[-1].split(".")[0].replace("_pipeline", "")
 
+
+def get_display_name(name: str) -> str:
+    return name.replace("_", " ").capitalize()

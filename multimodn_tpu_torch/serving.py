@@ -4,9 +4,9 @@ twin of ``multimodn_tpu/serving.py``).
 ``InferenceSession`` advances the state one modality at a time and reads
 every decoder after each step. ``export_model`` / ``load_model`` write and
 read the JAX package's format, ``config.json`` + ``params.npz``, so a model
-exported by either package loads in the other. This slice rebuilds
-MLP-family encoders and dense decoders; ahead-of-time compiled exports come
-later (ROADMAP.md Queue A, 'Serving').
+exported by either package loads in the other. It rebuilds the MLP-family,
+SLP and recurrent encoders and the dense decoders; ahead-of-time compiled
+exports come later (ROADMAP.md Queue A, 'Serving').
 """
 from __future__ import annotations
 
@@ -117,7 +117,7 @@ def _unflatten(flat: dict) -> dict:
 def _module_spec(m) -> dict:
     spec = {"class": type(m).__name__}
     for attr in ("state_size", "n_features", "hidden_layers", "dropout_rate",
-                 "n_classes"):
+                 "n_classes", "unbatched_compat"):
         if hasattr(m, attr):
             v = getattr(m, attr)
             spec[attr] = list(v) if isinstance(v, tuple) else v

@@ -1,5 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on a GPU: the
-fused chain (K1) and the fused 8-bit Adam update (K2).
+fused chain (K1, at the MIMIC, small and Titanic shapes) and the fused
+8-bit Adam update (K2); and the card against the CPU for training, the
+recurrent encoders, ``SGD`` and ``AdamW``, and two Titanic pipelines.
 
 Every test here carries the ``cuda`` marker and skips without a GPU. The
 file imports neither JAX nor the JAX package, so it runs on a GPU machine
@@ -19,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from multimodn_tpu_torch import Adam8bit, MultiModN
+from multimodn_tpu_torch import SGD, Adam, Adam8bit, AdamW, MultiModN
 from multimodn_tpu_torch import decoders as tdec
 from multimodn_tpu_torch import encoders as tenc
 from multimodn_tpu_torch.core.tree import tree_leaves
@@ -57,7 +59,19 @@ CASES = {
     "wide_state": (256, lambda: [tenc.MIMICMLPEncoder(256, w, (256, 256))
                                  for w in (40, 300)],
                    lambda: [tdec.MLPDecoder(256, (256,), 3)]),
+    # The Titanic pipelines' models: the quick-start at state 1 (a state
+    # row of one float, a concat layer 1 wide), two partitions of 3 and 2
+    # features, and six 1-feature modalities (K=1 inputs, 7 states decoded).
+    "titanic_mlp": (1, lambda: [tenc.MLPEncoder(1, 6, (5, 5))],
+                    lambda: [tdec.LogisticDecoder(1)]),
+    "titanic_partitioned": (5, lambda: [tenc.MLPEncoder(5, n, (5, 5))
+                                        for n in (3, 2)],
+                            lambda: [tdec.LogisticDecoder(5)]),
+    "titanic_featurewise": (5, lambda: [tenc.MLPFeatureEncoder(5, 5)
+                                        for _ in range(6)],
+                            lambda: [tdec.LogisticDecoder(5)]),
 }
+TITANIC = ("titanic_mlp", "titanic_partitioned", "titanic_featurewise")
 
 
 @pytest.fixture()
@@ -101,6 +115,21 @@ def test_kernel_matches_plain(cuda, case, B):
     want = fc.fused_chain_forward_ref(spec, model.params, data, valid, init)
     torch.cuda.synchronize()
     assert fc.FUSED_CHAIN.launches == before + spec.launches
+    _close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TITANIC)
+@pytest.mark.parametrize("B", [139, 178, 712])
+def test_kernel_matches_plain_at_titanic_sizes(cuda, case, B):
+    """The Titanic splits' sizes: 139 and 178 validation rows, 712
+    training rows."""
+    model = _model(case, cuda)
+    spec = fc.ChainSpec(model.encoders, model.decoders, model.state_size)
+    data, valid, init = _chain_inputs(model, B, cuda)
+    got = fc.fused_chain_forward(spec, model.params, data, valid, init)
+    want = fc.fused_chain_forward_ref(spec, model.params, data, valid, init)
+    torch.cuda.synchronize()
     _close(got, want)
 
 
@@ -385,4 +414,85 @@ def test_multi_task_pipeline_on_cuda(cuda, tmp_path, monkeypatch):
         table = list(csv.DictReader(f))
     assert len(table) == 8
     assert all(0.0 <= float(r["auc"]) <= 1.0 for r in table)
+    assert (fc.FUSED_CHAIN.launches, fa.FUSED_ADAM.launches) == launches
+
+
+def _recurrent_model(device):
+    return MultiModN(
+        3, [tenc.LSTMEncoder(3, 4, (5,)), tenc.RNNFeatureEncoder(3, 4),
+            tenc.LSTMEncoder(3, 2, (3,), "tanh", unbatched_compat=False)],
+        [tdec.LogisticDecoder(3)], 0.7, 0.3, seed=2, device=device)
+
+
+def _pair_step(make_model, make_optimizer, widths, steps=3):
+    """The same weights take ``steps`` steps on the same batches on the
+    card and on the CPU; returns the max abs parameter difference."""
+    gpu, cpu = make_model("cuda"), make_model("cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.default_rng(1)
+    X = rng.normal(size=(8 * steps, sum(widths))).astype(np.float32)
+    X[::5, :widths[0]] = np.nan
+    y = (X[:, -1:] > 0).astype(np.int64)
+    ds = PartitionDataset(X, y, list(widths))
+    for m in (gpu, cpu):
+        m.train_epoch(ArrayLoader(ds, 8), make_optimizer(), "cross_entropy")
+    for t in tree_leaves(gpu.params):
+        assert t.is_cuda
+    return max(float(np.abs(a - b).max()) for a, b in zip(
+        tree_leaves(gpu.state_dict()), tree_leaves(cpu.state_dict())))
+
+
+@pytest.mark.cuda
+def test_recurrent_encoders_on_cuda_match_cpu(cuda):
+    """A model of LSTM and RNN encoders in both recurrence modes answers the
+    same on both devices (outputs within 1e-5) and takes 3 Adam steps:
+    cuBLAS and the CPU sum in other orders, and Adam may move a near-zero
+    gradient's parameter by up to lr per step the other way (3 lr)."""
+    gpu, cpu = _recurrent_model(cuda), _recurrent_model("cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.default_rng(0)
+    x = [rng.normal(size=(12, w)).astype(np.float32) for w in (4, 1, 2)]
+    for g, c in zip(gpu.predict_proba(x), cpu.predict_proba(x)):
+        np.testing.assert_allclose(g, c, rtol=0, atol=ATOL)
+    err = _pair_step(_recurrent_model, lambda: Adam(0.01), (4, 1, 2))
+    assert err <= 3 * 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sgd", "sgd_momentum", "adamw"])
+def test_sgd_and_adamw_steps_on_cuda_match_cpu(cuda, name):
+    """3 steps of each optimizer on both devices. SGD's step is linear in
+    the gradient, so the parameters stay within 1e-5; AdamW's may move a
+    near-zero gradient's parameter the other way by up to lr per step."""
+    make = {"sgd": lambda: SGD(0.05),
+            "sgd_momentum": lambda: SGD(0.05, momentum=0.9),
+            "adamw": lambda: AdamW(0.01, weight_decay=0.1)}[name]
+
+    def model(device):
+        return MultiModN(5, [tenc.MLPEncoder(5, 3, (5, 5)),
+                             tenc.SLPEncoder(5, 2)],
+                         [tdec.LogisticDecoder(5)], 0.7, 0.3, seed=3,
+                         device=device)
+
+    err = _pair_step(model, make, (3, 2))
+    assert err <= (3 * 0.01 if name == "adamw" else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["titanic_mlp", "titanic_lstm"])
+def test_titanic_pipeline_on_cuda(cuda, name, tmp_path, monkeypatch):
+    """One epoch of a Titanic pipeline on the card, with its results CSV:
+    every parameter lives there, losses are finite, and no kernel launches
+    (training and validation run the plain chain, as in the JAX
+    package)."""
+    import importlib
+    mod = importlib.import_module(
+        f"multimodn_tpu_torch.pipelines.titanic.{name}_pipeline")
+    monkeypatch.setattr(mod, "__file__", str(tmp_path / f"{name}_pipeline.py"))
+    launches = (fc.FUSED_CHAIN.launches, fa.FUSED_ADAM.launches)
+    model, history = mod.main(["-e", "1", "-m", "false", "-y", "false",
+                               "-p", "false"])
+    assert all(t.is_cuda for t in tree_leaves(model.params))
+    assert np.isfinite(history.loss["train"][0]).all()
+    assert (tmp_path / "results" / f"{name}.csv").exists()
     assert (fc.FUSED_CHAIN.launches, fa.FUSED_ADAM.launches) == launches

@@ -205,10 +205,11 @@ def test_port_export_loads_in_jax(tmp_path):
 
 
 def test_load_model_rejects_unported_classes(tmp_path):
-    jm = jmm.MultiModN(4, [jenc.RNNEncoder(4, 6, (5,))],
+    jm = jmm.MultiModN(4, [jenc.TransformerEncoder(4, 6, embed_dim=8,
+                                                   n_heads=2, n_layers=1)],
                        [jdec.LogisticDecoder(4)], 1.0, 0.0)
     jmm.export_model(jm, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="RNNEncoder"):
+    with pytest.raises(NotImplementedError, match="TransformerEncoder"):
         tmm.load_model(str(tmp_path), device="cpu")
 
 
