@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --protocol-only --patients 6485 --epochs 1
+    python3 chip_smoke.py --mnar-only --epochs 10
 
 The first form is the smoke run; the second times phase 8 alone at another
-data size and depth. Phases, each fatal on failure:
+data size and depth; the third runs the MNAR protocol grid alone. Phases,
+each fatal on failure:
 
 1. the card's name and power limit, torch and CUDA versions; TF32 off;
 2. build the fused-chain kernel from ``multimodn_tpu_torch/csrc``;
@@ -72,15 +74,41 @@ data size and depth. Phases, each fatal on failure:
    JAX package's do); wall times, training steps per second, and a
    ``torch.profiler`` split of 8 steps of the quick-start's and the LSTM
    pipeline's models printed;
-10. the earlier designs' times from PERF.md on a line of their own, one
-   ``{"kernels": [...]}`` line of this run's numbers (K1's with a
-   ``titanic`` block), the script's wall time, the card's line, and last
-   the ``{"ok": true, ...}`` line.
+10. the MNAR robustness protocol (``pipelines/mimic/mnar_protocol.py``)
+   cut to 120 patients, 2 folds and 2 epochs, all six missingness levels,
+   for ``nan_skip='batch'`` and for ``'sample'`` with the presence penalty
+   (lambda 25), in a temporary directory: 2 targets x 2 folds x (1 or 2
+   tests) rows per level and model, the summary's 22 groups, every AUROC
+   in [0, 1], no kernel launched, no pandas, scikit-learn or JAX loaded;
+   wall time per variant and level, MultiModN and HAIM steps/s. Then a
+   MIMIC model trained by ``fit_best`` with ``nan_skip='sample'`` and
+   lambda 25 on an 80%-degraded fold goes through ``export_model`` ->
+   ``load_model`` and serves its flipped-class test rows through K1,
+   launches counted, held against the plain chain;
+11. the MIMIC transformer pipeline at full width (a ``TransformerEncoder``
+   of embed 128, 4 heads, 2 layers, chunk 64 per source: 1, 16, 12 and 2
+   tokens) on 120 patients, 5 folds, 2 epochs: 20 rows, wall time and
+   steps/s; a trained model through ``export_model`` -> ``load_model``
+   with ``predict_proba`` bit-equal and ``fused_forward`` refused; the
+   card against the CPU after 3 ``Adam`` steps for that model and for a
+   ``ViTEncoder`` at its constructor defaults; ``torch.profiler`` over 8
+   training steps at batch 16 and 1024 (kernels and device ms per step,
+   busy share);
+12. the earlier designs' times from PERF.md on a line of their own, the
+   ``mnar`` and ``transformer`` lines, one ``{"kernels": [...]}`` line of
+   this run's numbers (K1's with ``titanic`` and ``mnar`` blocks), the
+   script's wall time, the card's line, and last the ``{"ok": true, ...}``
+   line.
+
+``--mnar-only`` runs phase 1 and the MNAR protocol grid alone at the
+published cohort scale (300 patients, 5 folds) for ``batch``, ``sample``
+and ``sample`` + lambda 25, ``--epochs`` deep.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
 """
 import argparse
+import contextlib
 import csv
 import importlib
 import json
@@ -861,6 +889,56 @@ class PhaseClock:
         return out
 
 
+def fold_clock():
+    """A ``PhaseClock`` on the MultiModN and HAIM folds (training with
+    steps counted, and testing)."""
+    from multimodn_tpu_torch.baselines.haim import HAIM
+    clock = PhaseClock()
+    clock.wrap(MultiModN, "_fit_best", "modn", steps=lambda out, self, tr,
+               *a, **k: out[0]["epochs_ran"] * tr.n_batches)
+    clock.wrap(MultiModN, "test", "modn")
+    clock.wrap(HAIM, "fit_best", "haim", steps=lambda out, self, tr, *a,
+               **k: len(out["scores"]) * tr.n_batches)
+    clock.wrap(HAIM, "test", "haim")
+    return clock
+
+
+def fold_rates(seconds, steps):
+    """Seconds, training steps and steps/s of the MultiModN and HAIM
+    folds."""
+    out = {}
+    for model in ("modn", "haim"):
+        out[f"{model}_s"] = seconds.get(model, 0.0)
+        out[f"{model}_steps"] = steps.get(model, 0)
+        out[f"{model}_steps_per_s"] = steps.get(model, 0) / max(
+            seconds.get(model, 0.0), 1e-9)
+    return out
+
+
+@contextlib.contextmanager
+def scratch_storage(prefix):
+    """A temporary directory for ``MULTIMODN_STORAGE`` and the MIMIC data
+    cache (the real-CSV path unset); all restored and removed after."""
+    from multimodn_tpu_torch.data import mimic as mimic_data
+    work = tempfile.mkdtemp(prefix=prefix)
+    saved_env = {k: os.environ.get(k) for k in
+                 ("MULTIMODN_STORAGE", "MULTIMODN_MIMIC_EMBED_PATH")}
+    saved_root = mimic_data.DEFAULT_CACHE_ROOT
+    os.environ["MULTIMODN_STORAGE"] = os.path.join(work, "store")
+    os.environ.pop("MULTIMODN_MIMIC_EMBED_PATH", None)
+    mimic_data.DEFAULT_CACHE_ROOT = os.path.join(work, "cache")
+    try:
+        yield work
+    finally:
+        mimic_data.DEFAULT_CACHE_ROOT = saved_root
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def run_protocol(device, patients=None, epochs=PROTOCOL_EPOCHS):
     """Phase 8: the three MIMIC pipelines on the card, on the synthetic
     table of ``patients`` patients (default: the pipelines' own)."""
@@ -874,13 +952,6 @@ def run_protocol(device, patients=None, epochs=PROTOCOL_EPOCHS):
 
     if foreign_modules():
         raise AssertionError(f"loaded before phase 8: {foreign_modules()}")
-    work = tempfile.mkdtemp(prefix="chip_smoke_protocol_")
-    saved_env = {k: os.environ.get(k) for k in
-                 ("MULTIMODN_STORAGE", "MULTIMODN_MIMIC_EMBED_PATH")}
-    saved_root = mimic_data.DEFAULT_CACHE_ROOT
-    os.environ["MULTIMODN_STORAGE"] = os.path.join(work, "store")
-    os.environ.pop("MULTIMODN_MIMIC_EMBED_PATH", None)
-    mimic_data.DEFAULT_CACHE_ROOT = os.path.join(work, "cache")
     models = []
     build = common.build_modn
 
@@ -893,15 +964,9 @@ def run_protocol(device, patients=None, epochs=PROTOCOL_EPOCHS):
             super().__init__(*args, **kwargs)
             models.append(self)
 
-    clock = PhaseClock()
+    clock = fold_clock()
     clock.wrap(mimic_data.MIMICDataset, "__init__", "data")
     clock.wrap(mimic_data, "build_mimic_cache", "data")
-    clock.wrap(MultiModN, "_fit_best", "modn", steps=lambda out, self, tr,
-               *a, **k: out[0]["epochs_ran"] * tr.n_batches)
-    clock.wrap(MultiModN, "test", "modn")
-    clock.wrap(HAIM, "fit_best", "haim", steps=lambda out, self, tr, *a,
-               **k: len(out["scores"]) * tr.n_batches)
-    clock.wrap(HAIM, "test", "haim")
     common.build_modn, common.HAIM = recording_build, RecordingHAIM
     # Each parse of a cache file: its seconds, and whether the per-file
     # parse memo of data/table.py served it (the same array came back).
@@ -915,8 +980,16 @@ def run_protocol(device, patients=None, epochs=PROTOCOL_EPOCHS):
         return out
 
     mimic_data.read_numeric_csv = timed_read
+
+    def undo_patches():
+        clock.restore()
+        common.build_modn, common.HAIM = build, HAIM
+        mimic_data.read_numeric_csv = read_numeric
+
     results = {}
-    try:
+    with contextlib.ExitStack() as stack:
+        stack.callback(undo_patches)
+        work = stack.enter_context(scratch_storage("chip_smoke_protocol_"))
         for module, argv, want_rows in PROTOCOL_RUNS:
             main = importlib.import_module(
                 f"multimodn_tpu_torch.pipelines.mimic.{module}").main
@@ -980,17 +1053,6 @@ def run_protocol(device, patients=None, epochs=PROTOCOL_EPOCHS):
                  "k1_launches": launched[0], "k2_launches": launched[1]}
             results[name] = r
             log(f"  {name}: {json.dumps(r)}")
-    finally:
-        clock.restore()
-        common.build_modn, common.HAIM = build, HAIM
-        mimic_data.read_numeric_csv = read_numeric
-        mimic_data.DEFAULT_CACHE_ROOT = saved_root
-        for k, v in saved_env.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-        shutil.rmtree(work, ignore_errors=True)
     if foreign_modules():
         raise AssertionError(f"loaded by phase 8: {foreign_modules()}")
     log(f"  pandas, scikit-learn, JAX and the JAX package not loaded; "
@@ -1089,69 +1151,84 @@ def run_quickstart(device):
     return r, model
 
 
+def serve_trained(name, model, requests, device):
+    """A trained model's requests through ``fused_forward`` (K1), launches
+    counted over them, held against the plain chain and
+    ``InferenceSession``; then K1 alone at the first request's inputs,
+    timed beside its plain version and its bound."""
+    spec = ChainSpec(model.encoders, model.decoders, model.state_size)
+    torch.cuda.synchronize()
+    FUSED_CHAIN.launches = 0
+    answers = [model.fused_forward(x) for x in requests]
+    torch.cuda.synchronize()
+    launches = FUSED_CHAIN.launches
+    if launches != spec.launches * len(requests):
+        raise AssertionError(
+            f"{name}: K1 launched {launches} times for {len(requests)} "
+            f"requests of {spec.launches} launches")
+    nan_cells = int(sum(np.isnan(m).any(axis=1).sum()
+                        for x in requests for m in x))
+    err_chain, err_session = served_errors(model, requests, answers, device)
+    if not (err_chain <= TOL and err_session <= TOL):
+        raise AssertionError(f"{name}: served answers disagree with the "
+                             f"plain chain ({err_chain}, {err_session})")
+    data = model._to_device(requests[0])
+    valid = torch.stack([~torch.isnan(m).any(dim=1) for m in data],
+                        dim=1).float()
+    data = tuple(torch.nan_to_num(m).contiguous() for m in data)
+    init_row = model.params["init_state"]["value"][0].contiguous()
+    layers = spec.layer_params(model.params)
+    ms, per_call = time_counted(lambda: FUSED_CHAIN.launch(
+        spec, layers, data, valid, init_row), FUSED_CHAIN)
+    plain_ms = time_ms(lambda: fused_chain_forward_ref(
+        spec, model.params, data, valid, init_row))
+    bound_ms, bound_by, flops, nbytes = bound(spec, data[0].shape[0])
+    if per_call != spec.launches:
+        raise AssertionError(f"{name}: {per_call} launches per timed call, "
+                             f"the plan gives {spec.launches}")
+    return {"pipeline": name, "requests": len(requests),
+            "rows": sum(x[0].shape[0] for x in requests),
+            "nan_cells": nan_cells, "launches": launches,
+            "launches_per_request": spec.launches, "max_abs_err": err_chain,
+            "session_max_abs_err": err_session, "batch": data[0].shape[0],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "flops": flops, "bytes": nbytes}
+
+
+def export_and_load(model, path, device, name):
+    """``export_model`` -> ``load_model``, every weight bit-equal."""
+    export_model(model, path)
+    loaded = load_model(path, device=device)
+    for a, b in zip(tree_leaves(model.state_dict()),
+                    tree_leaves(loaded.state_dict())):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{name}: load_model changed a weight")
+    return loaded
+
+
+def request_batches(dataset, rows):
+    """``rows`` of a partition dataset as requests of 16 rows."""
+    xs, _y, _ = dataset.arrays()
+    rows = np.asarray(rows)
+    return [[m[rows[i:i + SERVING_BATCH]] for m in xs]
+            for i in range(0, len(rows), SERVING_BATCH)]
+
+
 def serve_titanic(device, trained, work):
     """Each trained MLP-family model through ``export_model`` ->
-    ``load_model``, then its validation set in requests of 16 rows through
-    ``fused_forward`` (K1), held against the plain chain and
-    ``InferenceSession``; K1 alone timed at B=16 beside its plain version
-    and its bound."""
+    ``load_model``, then its validation set in requests of 16 rows
+    (``serve_trained``)."""
     from multimodn_tpu_torch.pipelines.titanic import common
     out = {}
     for label, name in TITANIC_SERVED:
         cfg = titanic_pipeline(name).CONFIG
-        path = os.path.join(work, "export", name)
-        export_model(trained[name], path)
-        model = load_model(path, device=device)
-        for a, b in zip(tree_leaves(trained[name].state_dict()),
-                        tree_leaves(model.state_dict())):
-            if not np.array_equal(a, b):
-                raise AssertionError(f"{name}: load_model changed a weight")
+        model = export_and_load(trained[name],
+                                os.path.join(work, "export", name), device,
+                                name)
         _train, val, _ = common.split(cfg, 0)
-        xs, _y, _ = val.dataset.arrays()
-        rows = np.asarray(val.indices)
-        requests = [[m[rows[i:i + SERVING_BATCH]] for m in xs]
-                    for i in range(0, len(rows), SERVING_BATCH)]
-        spec = ChainSpec(model.encoders, model.decoders, model.state_size)
-        torch.cuda.synchronize()
-        FUSED_CHAIN.launches = 0
-        answers = [model.fused_forward(x) for x in requests]
-        torch.cuda.synchronize()
-        launches = FUSED_CHAIN.launches
-        if launches != spec.launches * len(requests):
-            raise AssertionError(
-                f"{name}: K1 launched {launches} times for {len(requests)} "
-                f"requests of {spec.launches} launches")
-        nan_cells = int(sum(np.isnan(m).any(axis=1).sum()
-                            for x in requests for m in x))
-        err_chain, err_session = served_errors(model, requests, answers,
-                                               device)
-        if not (err_chain <= TOL and err_session <= TOL):
-            raise AssertionError(f"{name}: served answers disagree with "
-                                 f"the plain chain ({err_chain}, "
-                                 f"{err_session})")
-        # K1 alone at the serving batch, on the first request's inputs.
-        data = model._to_device(requests[0])
-        valid = torch.stack([~torch.isnan(m).any(dim=1) for m in data],
-                            dim=1).float()
-        data = tuple(torch.nan_to_num(m).contiguous() for m in data)
-        init_row = model.params["init_state"]["value"][0].contiguous()
-        layers = spec.layer_params(model.params)
-        ms, per_call = time_counted(lambda: FUSED_CHAIN.launch(
-            spec, layers, data, valid, init_row), FUSED_CHAIN)
-        plain_ms = time_ms(lambda: fused_chain_forward_ref(
-            spec, model.params, data, valid, init_row))
-        bound_ms, bound_by, flops, nbytes = bound(spec, SERVING_BATCH)
-        r = {"pipeline": name, "requests": len(requests),
-             "rows": len(rows), "nan_cells": nan_cells,
-             "launches": launches, "launches_per_request": spec.launches,
-             "max_abs_err": err_chain, "session_max_abs_err": err_session,
-             "batch": SERVING_BATCH, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
-             "bytes": nbytes}
+        r = serve_trained(name, model, request_batches(val.dataset,
+                                                       val.indices), device)
         log(f"  K1 at {label}: {json.dumps(r)}")
-        if per_call != spec.launches:
-            raise AssertionError(f"{name}: {per_call} launches per timed "
-                                 f"call, the plan gives {spec.launches}")
         out[label] = r
     return out
 
@@ -1199,6 +1276,337 @@ def run_titanic(device):
             "profile": profiles}
 
 
+# Phase 10: the MNAR robustness protocol (the port of
+# nips/run_mnar_protocol.py), cut, for the batch-granular skip and for the
+# per-sample skip with the presence penalty; then a lambda-trained MIMIC
+# model served through K1. --mnar-only runs the grid at the published
+# cohort scale (300 patients, 5 folds) for the three published variants.
+MNAR_PATIENTS, MNAR_FOLDS, MNAR_EPOCHS = 120, 2, 2
+MNAR_VARIANTS = (("batch", 0.0), ("sample", 25.0))
+MNAR_FULL_PATIENTS, MNAR_FULL_FOLDS = 300, 5
+MNAR_FULL_VARIANTS = (("batch", 0.0), ("sample", 0.0), ("sample", 25.0))
+MNAR_SERVED_MISS, MNAR_SERVED_LAMBDA = 80.0, 25.0
+
+
+def flipped_table(summary, levels):
+    """Mean test AUROC per model and level: the flipped-class degraded test
+    above 0%, the clean test at 0% (the JAX script's table), and the clean
+    test at every level."""
+    out = {}
+    for model in ("modn", "haim"):
+        for kind, flipped in (("flipped", True), ("clean", False)):
+            cells = []
+            for mp in levels:
+                sel = np.flatnonzero(
+                    (summary["model"] == model)
+                    & (summary["miss_perc"] == mp)
+                    & (summary["both"] == (flipped and mp > 0)))
+                cells.append(float(summary["mean"][sel[0]]) if len(sel)
+                             else None)
+            out[f"{model}_{kind}"] = cells
+    return out
+
+
+def run_mnar(device, patients, nfold, epochs, variants):
+    """The MNAR protocol runner for each ``(nan_skip, lambda)`` variant in a
+    temporary storage and cache directory: wall time per variant and per
+    level, MultiModN and HAIM steps/s, the rows and summary checked."""
+    from multimodn_tpu_torch.pipelines.mimic import mnar_protocol as proto
+
+    if foreign_modules():
+        raise AssertionError(f"loaded before phase 10: {foreign_modules()}")
+    levels = proto.MISS_PERCS
+    level_s = []
+    pipeline_main = proto.mnar_pipeline.main
+
+    def timed_level(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = pipeline_main(*args, **kwargs)
+        torch.cuda.synchronize()
+        level_s.append(time.perf_counter() - t0)
+        return out
+
+    def undo_patches():
+        proto.mnar_pipeline.main = pipeline_main
+        clock.restore()
+
+    clock = fold_clock()
+    proto.mnar_pipeline.main = timed_level
+    results = {}
+    with contextlib.ExitStack() as stack:
+        stack.callback(undo_patches)
+        work = stack.enter_context(scratch_storage("chip_smoke_mnar_"))
+        for nan_skip, lam in variants:
+            del level_s[:]
+            torch.cuda.synchronize()
+            FUSED_CHAIN.launches = FUSED_ADAM.launches = 0
+            t0 = time.perf_counter()
+            summary = proto.main(patients, epochs, nfold, nan_skip, lam,
+                                 device=device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            seconds, steps = clock.take()
+            tag = proto.variant_tag(nan_skip, lam, patients, epochs, nfold)
+            path = os.path.join(work, "store", "nips", "results",
+                                f"mnar_protocol_rows_{tag}.csv")
+            with open(path, newline="") as f:
+                table = list(csv.DictReader(f))
+            want_rows = 2 * nfold * (1 + 2 * (len(levels) - 1))
+            for model in ("modn", "haim"):
+                n = sum(r["model"] == model for r in table)
+                if n != want_rows:
+                    raise AssertionError(f"{tag}: {n} {model} rows, want "
+                                         f"{want_rows}")
+            aucs = [float(r["test_auc"]) for r in table]
+            if not all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in aucs):
+                raise AssertionError(f"{tag}: AUROC outside [0, 1]")
+            n_groups = 2 * (2 * len(levels) - 1)
+            if len(summary["mean"]) != n_groups or list(
+                    summary["count"]) != [2 * nfold] * n_groups:
+                raise AssertionError(f"{tag}: summary {summary}")
+            if (FUSED_CHAIN.launches, FUSED_ADAM.launches) != (0, 0):
+                raise AssertionError(f"{tag}: the fused kernels launched on "
+                                     f"the protocol path, which runs neither")
+            r = {"patients": patients, "folds": nfold, "epochs": epochs,
+                 "wall_s": wall,
+                 "level_s": dict(zip([str(mp) for mp in levels], level_s)),
+                 **fold_rates(seconds, steps),
+                 "rows": len(table), "auc_min": min(aucs),
+                 "auc_max": max(aucs),
+                 "auroc": flipped_table(summary, levels)}
+            results[tag] = r
+            log(f"  {tag}: {json.dumps(r)}")
+    if foreign_modules():
+        raise AssertionError(f"loaded by phase 10: {foreign_modules()}")
+    log("  pandas, scikit-learn, JAX and the JAX package not loaded")
+    return results
+
+
+def serve_mnar_model(device, epochs=MNAR_EPOCHS):
+    """A MIMIC model trained with ``nan_skip='sample'`` and the presence
+    penalty by ``fit_best`` on fold 0 of the first target, degraded at
+    ``MNAR_SERVED_MISS``% as the MNAR pipeline degrades it; exported,
+    loaded, and its flipped-class degraded test rows served through K1."""
+    from multimodn_tpu_torch.data import MIMICDataset
+    from multimodn_tpu_torch.pipelines.mimic import common
+    from multimodn_tpu_torch.pipelines.mimic. \
+        mimic_single_task_mnar_missingness_pipeline import _mnar_indices
+
+    with scratch_storage("chip_smoke_mnar_model_") as work:
+        cfg = common.MimicConfig(synthetic_patients=MNAR_PATIENTS,
+                                 nan_skip="sample",
+                                 presence_penalty=MNAR_SERVED_LAMBDA)
+        target, vd = cfg.targets[0], [f"vd_{k}" for k in range(1024)]
+        synth = {"n_patients": cfg.synthetic_patients}
+        base = MIMICDataset(cfg.sources, targets=[target],
+                            synthetic_kwargs=synth)
+        tr, va, te = next(common.patient_kfold_splits(
+            base, cfg.nfold, 0, patient=common.joint_split_table(cfg)))
+        idx = (_mnar_indices(base, tr, target, 1, MNAR_SERVED_MISS)
+               + _mnar_indices(base, va, target, 1, MNAR_SERVED_MISS))
+        ds = MIMICDataset(cfg.sources, targets=[target], put_none=True,
+                          indices_to_nan=idx, features_to_nan=vd,
+                          synthetic_kwargs=synth).partition_dataset(
+                              base.partitions)
+        model = common.build_modn(cfg, base.partitions, [target], 0, device)
+        torch.cuda.synchronize()
+        FUSED_CHAIN.launches = FUSED_ADAM.launches = 0
+        t0 = time.perf_counter()
+        info = model.fit_best(ArrayLoader(Subset(ds, tr), cfg.batch_size),
+                              Adam(cfg.learning_rate), "cross_entropy",
+                              epochs=epochs,
+                              val_loader=ArrayLoader(Subset(ds, va),
+                                                     cfg.batch_size))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        if (FUSED_CHAIN.launches, FUSED_ADAM.launches) != (0, 0):
+            raise AssertionError("training launched a fused kernel")
+        loaded = export_and_load(model, os.path.join(work, "export"), device,
+                                 "mnar")
+        if (loaded.presence_penalty, loaded.nan_skip) != \
+                (MNAR_SERVED_LAMBDA, "sample"):
+            raise AssertionError("the export lost the presence penalty")
+        test = MIMICDataset(
+            cfg.sources, targets=[target], put_none=True,
+            indices_to_nan=_mnar_indices(base, te, target, 0,
+                                         MNAR_SERVED_MISS),
+            features_to_nan=vd, synthetic_kwargs=synth).partition_dataset(
+                base.partitions)
+        r = serve_trained("mnar_sample_pp25", loaded,
+                          request_batches(test, te), device)
+    r.update({"miss_perc": MNAR_SERVED_MISS, "lambda": MNAR_SERVED_LAMBDA,
+              "fit_best_s": fit_s, "epochs": epochs,
+              "best_epoch": info["best_epoch"],
+              "best_score": info["best_score"]})
+    log(f"  K1 serving the lambda-trained MIMIC model: {json.dumps(r)}")
+    return r
+
+
+# Phase 11: the MIMIC transformer pipeline at full width, its model's
+# export round trip, card against CPU for it and for a ViT at its
+# constructor defaults, and a profile of its training step.
+TRANSFORMER_PATIENTS, TRANSFORMER_EPOCHS, TRANSFORMER_LR = 120, 2, 1e-3
+PROFILE_BATCHES = (16, 1024)
+
+
+def transformer_cfg(**kw):
+    from multimodn_tpu_torch.pipelines.mimic import common
+    return common.MimicConfig(encoder_type="transformer", dropout=0.0, **kw)
+
+
+def transformer_model(device, seed=0):
+    """The MIMIC transformer pipeline's model: one ``TransformerEncoder``
+    per source (embed 128, 4 heads, 2 layers, chunk 64), 2 heads."""
+    from multimodn_tpu_torch.pipelines.mimic import common
+    cfg = transformer_cfg()
+    return common.build_modn(cfg, list(MIMIC_WIDTHS), cfg.targets, seed,
+                             device)
+
+
+def vit_model(device, seed=0):
+    """A ``ViTEncoder`` at its constructor defaults (32x32x3 images, patch
+    8, embed 256, 4 heads, 4 layers) and one MIMIC head."""
+    from multimodn_tpu_torch.encoders import ViTEncoder
+    return MultiModN(MIMIC_STATE, [ViTEncoder(MIMIC_STATE)],
+                     [MLPDecoder(MIMIC_STATE, (MIMIC_HIDDEN,) * 2, 2)], 1.0,
+                     0.0, seed=seed, device=device)
+
+
+def random_dataset(widths, n, seed, n_targets=MIMIC_TARGETS,
+                   missing=MISSING_RATE):
+    """``n`` rows at ``widths`` with ``missing`` of the (row, modality)
+    cells NaN, labels from the signs of the first features."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, sum(widths))).astype(np.float32)
+    y = (X[:, :n_targets] > 0).astype(np.int64)
+    offsets = np.cumsum((0,) + tuple(widths[:-1]))
+    for off, w in zip(offsets, widths):
+        X[rng.random(n) < missing, off:off + w] = np.nan
+    return PartitionDataset(X, y, list(widths))
+
+
+def card_against_cpu(make_model, widths, label, device, steps=3, batch=8):
+    """The same weights answer the same rows and take ``steps`` Adam steps
+    on the same batches on both devices; outputs within TOL, parameters
+    within ``steps`` lr (Adam may move a near-zero gradient's parameter by
+    up to lr per step the other way)."""
+    gpu, cpu = make_model(device), make_model("cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    ds = random_dataset(widths, steps * batch, seed=5,
+                        n_targets=len(gpu.decoders))
+    xs, _y, _ = ds.arrays()
+    clean = [np.nan_to_num(m) for m in xs]
+    out_err = max(float(np.abs(g - c).max()) for g, c in zip(
+        gpu.predict_proba(clean), cpu.predict_proba(clean)))
+    for m in (gpu, cpu):
+        m.train_epoch(ArrayLoader(ds, batch), Adam(TRANSFORMER_LR),
+                      "cross_entropy")
+    err = max(float(np.abs(a - b).max()) for a, b in zip(
+        tree_leaves(gpu.state_dict()), tree_leaves(cpu.state_dict())))
+    r = {"outputs_max_abs_err": out_err, "params_max_abs_err": err,
+         "steps": steps, "lr": TRANSFORMER_LR}
+    log(f"  card vs CPU, {label}: {json.dumps(r)}")
+    if not (out_err <= TOL and err <= steps * TRANSFORMER_LR):
+        raise AssertionError(f"{label}: the card and the CPU disagree")
+    return r
+
+
+def run_transformer(device):
+    """Phase 11."""
+    from multimodn_tpu_torch.pipelines.mimic import common
+    from multimodn_tpu_torch.pipelines.mimic import \
+        mimic_transformer_pipeline
+
+    if foreign_modules():
+        raise AssertionError(f"loaded before phase 11: {foreign_modules()}")
+    models, build = [], common.build_modn
+
+    def recording_build(*args, **kwargs):
+        models.append(build(*args, **kwargs))
+        return models[-1]
+
+    def undo_patches():
+        clock.restore()
+        common.build_modn = build
+
+    clock = fold_clock()
+    common.build_modn = recording_build
+    with contextlib.ExitStack() as stack:
+        stack.callback(undo_patches)
+        work = stack.enter_context(scratch_storage("chip_smoke_transformer_"))
+        torch.cuda.synchronize()
+        FUSED_CHAIN.launches = FUSED_ADAM.launches = 0
+        t0 = time.perf_counter()
+        rows = mimic_transformer_pipeline.main(
+            ["-e", str(TRANSFORMER_EPOCHS)],
+            transformer_cfg(synthetic_patients=TRANSFORMER_PATIENTS),
+            device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        seconds, steps = clock.take()
+        if (FUSED_CHAIN.launches, FUSED_ADAM.launches) != (0, 0):
+            raise AssertionError("the transformer pipeline launched a fused "
+                                 "kernel")
+        path = os.path.join(work, "store", "nips", "results",
+                            "mimic_single_task_(auc + bac).csv")
+        with open(path, newline="") as f:
+            table = list(csv.DictReader(f))
+        aucs = [float(r["auc"]) for r in table]
+        if len(table) != 20 or len(rows) != 20:
+            raise AssertionError(f"transformer pipeline: {len(table)} CSV "
+                                 f"rows, {len(rows)} results; want 20")
+        if not all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in aucs):
+            raise AssertionError(f"transformer pipeline: AUROC {aucs}")
+        tokens = [e.n_tokens for e in models[0].encoders]
+        if tokens != [1, 16, 12, 2]:
+            raise AssertionError(f"transformer models: tokens {tokens}")
+        if not all(t.device.type == device.type for m in models
+                   for t in tree_leaves(m.params)):
+            raise AssertionError(f"transformer models: parameters off "
+                                 f"{device}")
+        n_params = sum(t.numel() for t in tree_leaves(models[0].params))
+        pipeline = {"patients": TRANSFORMER_PATIENTS, "folds": 5,
+                    "epochs": TRANSFORMER_EPOCHS, "wall_s": wall,
+                    **fold_rates(seconds, steps), "rows": len(table),
+                    "auc_min": min(aucs),
+                    "auc_max": max(aucs), "tokens": tokens,
+                    "parameters": n_params}
+        log(f"  transformer pipeline: {json.dumps(pipeline)}")
+
+        trained = models[-1]
+        loaded = export_and_load(trained, os.path.join(work, "export"),
+                                 device, "transformer")
+        xs, _y, _ = random_dataset(MIMIC_WIDTHS, 64, seed=4,
+                                   missing=0.0).arrays()
+        equal = all(np.array_equal(a, b) for a, b in zip(
+            loaded.predict_proba(xs), trained.predict_proba(xs)))
+        if not equal:
+            raise AssertionError("the reloaded transformer model answers "
+                                 "differently")
+        try:
+            loaded.fused_forward(xs)
+            raise AssertionError("fused_forward accepted attention encoders")
+        except TypeError:
+            pass
+        log("  export -> load_model: predict_proba bit-equal; fused_forward "
+            "raises TypeError (K1 takes MLP-family encoders only)")
+
+    versus = {"transformer": card_against_cpu(
+        transformer_model, MIMIC_WIDTHS, "MIMIC transformer model", device),
+        "vit": card_against_cpu(vit_model, (32 * 32 * 3,),
+                                "ViTEncoder at its defaults", device)}
+    profiles = {}
+    for B in PROFILE_BATCHES:
+        loader = ArrayLoader(random_dataset(MIMIC_WIDTHS, 8 * B, seed=6), B)
+        profiles[str(B)] = profile_steps(
+            transformer_model(device), loader, Adam(TRANSFORMER_LR),
+            f"MIMIC transformer, batch {B}, Adam")
+    if foreign_modules():
+        raise AssertionError(f"loaded by phase 11: {foreign_modules()}")
+    return {"pipeline": pipeline, "card_vs_cpu": versus,
+            "profile": profiles}
+
+
 def build_kernels():
     """Build every kernel library at once (one nvcc per source)."""
     with ThreadPoolExecutor(max_workers=2) as pool:
@@ -1220,8 +1628,17 @@ def parse_args(argv=None):
     p.add_argument("--patients", type=int, default=None,
                    help="synthetic patients in phase 8 (default: the "
                         "pipelines' own)")
+    p.add_argument("--mnar-only", action="store_true",
+                   help="run phase 1 and the MNAR protocol grid at the "
+                        "published scale (300 patients, 5 folds; batch, "
+                        "sample, sample + lambda 25) only, --epochs deep")
+    p.add_argument("--variants", nargs="+", default=None,
+                   metavar="NAN_SKIP[:LAMBDA]",
+                   help="with --mnar-only: the variants to run (default: "
+                        "batch sample sample:25)")
     p.add_argument("--epochs", type=int, default=PROTOCOL_EPOCHS,
-                   help="epochs of each fold in phase 8")
+                   help="epochs of each fold in phase 8 (and of the grid "
+                        "with --mnar-only)")
     return p.parse_args(argv)
 
 
@@ -1245,6 +1662,17 @@ def main(argv=None) -> int:
         log("== phase 8: MIMIC protocol")
         protocol = run_protocol(device, args.patients, args.epochs)
         log("protocol: " + json.dumps(protocol))
+        log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
+        log(card)
+        return 0
+    if args.mnar_only:
+        log("== phase 10: MNAR protocol grid")
+        variants = MNAR_FULL_VARIANTS if args.variants is None else [
+            (v.split(":")[0], float(v.split(":")[1]) if ":" in v else 0.0)
+            for v in args.variants]
+        mnar = run_mnar(device, args.patients or MNAR_FULL_PATIENTS,
+                        MNAR_FULL_FOLDS, args.epochs, variants)
+        log("mnar: " + json.dumps(mnar))
         log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
         log(card)
         return 0
@@ -1283,6 +1711,16 @@ def main(argv=None) -> int:
     log(card_line())
     titanic = run_titanic(device)
 
+    log("== phase 10: MNAR protocol")
+    log(card_line())
+    mnar = run_mnar(device, MNAR_PATIENTS, MNAR_FOLDS, MNAR_EPOCHS,
+                    MNAR_VARIANTS)
+    mnar_served = serve_mnar_model(device)
+
+    log("== phase 11: transformer")
+    log(card_line())
+    transformer = run_transformer(device)
+
     main_b = mimic[SERVING_BATCH]
     entry = {
         "name": "fused_chain",
@@ -1308,6 +1746,10 @@ def main(argv=None) -> int:
             "pipeline", "requests", "launches", "launches_per_request",
             "max_abs_err", "batch", "ms", "plain_ms", "bound_ms",
             "bound_by")} for label, r in titanic["served"].items()},
+        "mnar": {k: mnar_served[k] for k in (
+            "pipeline", "requests", "launches", "launches_per_request",
+            "max_abs_err", "batch", "ms", "plain_ms", "bound_ms",
+            "bound_by")},
     }
     step = adam["times"]["mimic_step"]
     adam_entry = {
@@ -1342,6 +1784,8 @@ def main(argv=None) -> int:
     log("protocol: " + json.dumps(protocol))
     log("titanic: " + json.dumps({k: titanic[k] for k in (
         "pipelines", "quickstart", "profile")}))
+    log("mnar: " + json.dumps({"protocol": mnar, "served": mnar_served}))
+    log("transformer: " + json.dumps(transformer))
     log(json.dumps({"kernels": [entry, adam_entry]}))
     log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
     log(card)

@@ -39,6 +39,12 @@ def masked_mean_sq_diff(new_state, old_state, sample_mask):
     return (per_sample * m).sum() / m.sum().clamp_min(1.0)
 
 
+def sample_missing(x: torch.Tensor) -> torch.Tensor:
+    """(B,) True where a sample's modality input holds a NaN."""
+    nan_here = torch.isnan(x)
+    return nan_here.flatten(1).any(dim=1) if x.dim() > 1 else nan_here
+
+
 def init_chain_state(init_state, params: dict, batch: int, init_offset,
                      data) -> torch.Tensor:
     """Initial state for a chain run, dtype-aligned with the modality data."""
@@ -55,9 +61,7 @@ def chain_step_skip(run: Callable, x, old_state, sample_mask, n_real, *,
     one = torch.ones((), device=x.device)
     if nan_skip == "none":
         return run(x), one, n_real
-    nan_here = torch.isnan(x)
-    sample_has_nan = nan_here.flatten(1).any(dim=1) if x.dim() > 1 \
-        else nan_here
+    sample_has_nan = sample_missing(x)
     new_state = run(torch.nan_to_num(x))
     if nan_skip == "batch":
         any_nan = (sample_has_nan & (sample_mask > 0)).any()

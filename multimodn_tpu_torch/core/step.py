@@ -9,8 +9,9 @@ epoch (``to_host``). Epoch stacks have the layout of ``data.ArrayLoader``:
 modality tensors ``(n_batches, B, F_m)``, targets ``(n_batches, B, D)`` and
 a sample mask ``(n_batches, B)`` that is 0 on padded tail rows.
 
-The scan and switch chains, orders that repeat an encoder and the
-``presence_*`` mitigations are not ported yet (ROADMAP.md Queue A).
+The MNAR mitigations of ``nan_skip='sample'`` (``presence_dropout``,
+``presence_penalty``) act in training only. The scan and switch chains and
+orders that repeat an encoder are not ported yet (ROADMAP.md Queue A).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from multimodn_tpu_torch.core.fusion import (
     decode_grid,
     forward_chain,
     has_repeated_encoders,
+    sample_missing,
 )
 from multimodn_tpu_torch.core.metrics import masked_binary_auroc, safe_div
 from multimodn_tpu_torch.core.tree import (
@@ -30,8 +32,59 @@ from multimodn_tpu_torch.core.tree import (
     tree_unflatten,
 )
 
+STATIC_ORDER_MESSAGE = (
+    "presence_penalty needs a STATIC modality order (no shuffle_mode, "
+    "per-batch encoding sequences, or repeated encoders): the penalty "
+    "reconstructs execution-order state deltas from the row-indexed stack.")
 GRID_KEYS = ("err_loss", "state_change", "n_correct", "tp", "tn", "fp", "fn",
              "n_counted")
+
+
+def draw_presence_dropout(generator: torch.Generator, batch: int,
+                          n_modalities: int, p: float,
+                          device) -> torch.Tensor:
+    """(B, M) boolean mask: each (sample, modality) pair dropped with
+    probability ``p``, one Bernoulli draw per modality from ``generator``."""
+    return torch.stack([
+        torch.rand((batch,), generator=generator, device=device) < p
+        for _ in range(n_modalities)], dim=1)
+
+
+def inject_presence_dropout(data: Sequence[torch.Tensor],
+                            drop: torch.Tensor) -> tuple:
+    """Write NaN into every feature of each dropped (sample, modality) pair
+    of ``drop`` (B, M); the chain's NaN skip then treats the pair as absent
+    (JAX ``core/step.py:124-141``)."""
+    out = []
+    for m, x in enumerate(data):
+        shape = (-1,) + (1,) * (x.dim() - 1)
+        out.append(torch.where(drop[:, m].reshape(shape),
+                               torch.full_like(x, float("nan")), x))
+    return tuple(out)
+
+
+def presence_penalty_term(states: torch.Tensor, data: Sequence[torch.Tensor],
+                          sample_mask: torch.Tensor,
+                          order: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """The missingness-weighted mean squared state change over PRESENT rows,
+    averaged over the execution steps of the static ``order`` (JAX
+    ``core/step.py:143-191``): step k, ``(d, e) = order[k]``, reads the
+    change from the previous step's row (row 0 first) to row ``e + 1``,
+    weighted by modality ``d``'s missing fraction among the valid rows."""
+    valid = sample_mask > 0
+    n_valid = sample_mask.float().sum().clamp_min(1.0)
+    prev = states[0]
+    pen = torch.zeros((), device=states.device)
+    for d, e in order:
+        cur = states[e + 1]
+        missing = sample_missing(data[d])
+        miss_frac = (missing & valid).float().sum() / n_valid
+        present = ((~missing) & valid).float()
+        delta = ((cur.float() - prev.float()) ** 2).mean(dim=-1)
+        present_delta = (delta * present).sum() / present.sum().clamp_min(1.0)
+        pen = pen + miss_frac * present_delta
+        prev = cur
+    return pen / max(len(order), 1)
 
 
 def make_batch_loss_fn(encoders, decoders, init_state, criterion,
@@ -40,30 +93,50 @@ def make_batch_loss_fn(encoders, decoders, init_state, criterion,
                        chain: str = "unrolled", presence_dropout: float = 0.0,
                        presence_penalty: float = 0.0):
     """``loss_fn(params, data, targets, sample_mask, generator, init_offset,
-    train) -> (loss, aux)`` for one padded batch.
+    train, drop=None) -> (loss, aux)`` for one padded batch.
 
     The loss is the reference's (multimodn.py:194-202): the grid mean times
     ``err_penalty`` plus the mean state change times
     ``state_change_penalty``, which arrives already scaled by the
     constructor's 0.01 (quirk #1). ``aux["enc_gates"]`` holds the (E,)
     executed flags under ``nan_skip='batch'``, the one mode in which the
-    reference's torch optimizer skips parameters, and None otherwise."""
+    reference's torch optimizer skips parameters, and None otherwise.
+
+    MNAR mitigations for ``nan_skip='sample'``, in training only:
+    ``presence_dropout`` (p) re-marks each (sample, modality) pair missing
+    with probability p before the chain runs, from ``drop`` when given,
+    else drawn from ``generator`` (``draw_presence_dropout``);
+    ``presence_penalty`` (lambda) adds ``lambda * presence_penalty_term`` on
+    the injected data. The history's grids do not include it."""
     if chain != "unrolled":
         raise NotImplementedError(
             f"chain={chain!r}: the scan and switch chains are not ported yet "
             "(ROADMAP.md Queue A, 'Encoding orders')")
+    if presence_dropout or presence_penalty:
+        if nan_skip != "sample":
+            raise ValueError(
+                "presence_dropout/presence_penalty are sample-granularity "
+                "mitigations; they require nan_skip='sample' (batch mode is "
+                "already presence-robust, 'none' never skips).")
+    if presence_penalty and has_repeated_encoders(order):
+        raise ValueError(STATIC_ORDER_MESSAGE)
     if has_repeated_encoders(order):
         raise NotImplementedError(
             "orders that repeat an encoder are not ported yet (ROADMAP.md "
             "Queue A, 'Encoding orders')")
-    if presence_dropout or presence_penalty:
-        raise NotImplementedError(
-            "presence_dropout / presence_penalty are not ported yet "
-            "(ROADMAP.md Queue A, 'MNAR mitigations')")
     n_enc, n_dec = len(encoders), len(decoders)
 
     def loss_fn(params, data, targets, sample_mask, generator, init_offset,
-                train: bool):
+                train: bool, drop=None):
+        if presence_dropout and train:
+            if drop is None:
+                if generator is None:
+                    raise ValueError("presence_dropout draws its mask from "
+                                     "the training generator; got None")
+                drop = draw_presence_dropout(
+                    generator, sample_mask.shape[0], len(data),
+                    presence_dropout, sample_mask.device)
+            data = inject_presence_dropout(data, drop)
         states, state_change, row_ok, n_counted, final_state = forward_chain(
             encoders, init_state, params, data, sample_mask, order=order,
             nan_skip=nan_skip, init_offset=init_offset, train=train,
@@ -73,6 +146,9 @@ def make_batch_loss_fn(encoders, decoders, init_state, criterion,
         global_err = grid["err_loss"].sum() / (n_dec * (n_enc + 1))
         global_sc = state_change.sum() / n_enc
         loss = global_err * err_penalty + global_sc * state_change_penalty
+        if presence_penalty and train:
+            loss = loss + presence_penalty * presence_penalty_term(
+                states, data, sample_mask, order)
         aux = {
             "enc_gates": row_ok[1:] if nan_skip == "batch" else None,
             "err_loss": grid["err_loss"],

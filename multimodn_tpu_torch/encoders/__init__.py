@@ -1,3 +1,7 @@
+from multimodn_tpu_torch.encoders.attention import (
+    TransformerEncoder,
+    ViTEncoder,
+)
 from multimodn_tpu_torch.encoders.base import MultiModEncoder
 from multimodn_tpu_torch.encoders.mlp import (
     MIMICMLPEncoder,
@@ -30,4 +34,6 @@ __all__ = [
     "RNNEncoder",
     "LSTMFeatureEncoder",
     "RNNFeatureEncoder",
+    "TransformerEncoder",
+    "ViTEncoder",
 ]

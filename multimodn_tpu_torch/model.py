@@ -33,6 +33,7 @@ from multimodn_tpu_torch.core.state import (
     TrainableInitState,
 )
 from multimodn_tpu_torch.core.step import (
+    STATIC_ORDER_MESSAGE,
     epoch_reduction,
     make_batch_loss_fn,
     make_forward_fn,
@@ -54,8 +55,10 @@ class MultiModN:
     ``device`` defaults to CUDA; without a GPU the caller must pass
     ``device="cpu"``. Everything runs the unrolled chain, which gives the
     same results as the JAX package's scan and switch chains. Training with
-    ``shuffle_mode`` or ``presence_*`` is not ported yet and raises; the
-    options are kept for ``export_model``."""
+    ``shuffle_mode`` is not ported yet and raises; the option is kept for
+    ``export_model``. ``presence_dropout`` and ``presence_penalty`` are the
+    MNAR mitigations of ``nan_skip='sample'``, active in training only
+    (``core/step.py``)."""
 
     def __init__(
         self,
@@ -289,6 +292,9 @@ class MultiModN:
             presence_penalty=self.presence_penalty)
 
     def _train_order(self, loader):
+        if self.presence_penalty and (self.shuffle_mode
+                                      or loader.has_per_batch_sequences()):
+            raise ValueError(STATIC_ORDER_MESSAGE)
         if self.shuffle_mode:
             raise NotImplementedError(
                 "shuffle_mode draws the modality order per batch in the scan "

@@ -12,8 +12,7 @@ to a results CSV; then the HAIM parallel-fusion baseline on the same folds.
 Models run on CUDA unless the caller passes ``device="cpu"``. The folds
 train one after another (``experiments.kfold_fit_best``). Not ported yet,
 and raising ``NotImplementedError``: ``stream_folds`` (ROADMAP.md Queue A
-item 15), ``resume_dir`` (item 13), ``encoder_type="transformer"`` (item
-18) and ``presence_penalty > 0`` (item 11).
+item 15) and ``resume_dir`` (item 13).
 """
 from __future__ import annotations
 
@@ -31,7 +30,7 @@ from multimodn_tpu_torch.data import ArrayLoader, MIMICDataset, Subset
 from multimodn_tpu_torch.data.kfold import StratifiedKFold, train_test_split
 from multimodn_tpu_torch.data.table import format_value, write_rows
 from multimodn_tpu_torch.decoders import MLPDecoder
-from multimodn_tpu_torch.encoders import MIMICMLPEncoder
+from multimodn_tpu_torch.encoders import MIMICMLPEncoder, TransformerEncoder
 
 HYPERPARAMETERS = ["model", "target", "fold", "miss_perc", "seed",
                    "state_size", "batch_size", "encoder_hidd_units",
@@ -80,10 +79,6 @@ def check_config(cfg: MimicConfig):
                            "ROADMAP.md Queue A item 15)"),
         (cfg.resume_dir, "resume_dir (resumable fits, ROADMAP.md Queue A "
                          "item 13)"),
-        (cfg.encoder_type == "transformer",
-         "encoder_type='transformer' (ROADMAP.md Queue A item 18)"),
-        (cfg.presence_penalty > 0, "presence_penalty > 0 (MNAR mitigations, "
-                                   "ROADMAP.md Queue A item 11)"),
     ]
     for on, what in unported:
         if on:
@@ -164,14 +159,24 @@ def patient_kfold_splits(dataset: MIMICDataset, nfold: int, seed: int,
 
 def build_modn(cfg: MimicConfig, partitions: List[int], targets: List[str],
                seed: int, device=None) -> MultiModN:
-    """The MIMIC MultiModN: one ``MIMICMLPEncoder`` per partition, one
-    ``MLPDecoder`` per target."""
+    """The MIMIC MultiModN: one ``MIMICMLPEncoder`` (or, with
+    ``encoder_type='transformer'``, one ``TransformerEncoder``) per
+    partition, one ``MLPDecoder`` per target."""
     check_config(cfg)
-    encoders = [MIMICMLPEncoder(cfg.state_size, p,
-                                (cfg.encoder_hidd_units,
-                                 cfg.encoder_hidd_units),
-                                dropout=cfg.dropout)
-                for p in partitions]
+    if cfg.encoder_type == "transformer":
+        encoders = [TransformerEncoder(cfg.state_size, p,
+                                       embed_dim=cfg.transformer_embed,
+                                       n_heads=cfg.transformer_heads,
+                                       n_layers=cfg.transformer_layers,
+                                       chunk=min(cfg.transformer_chunk, p),
+                                       dropout_rate=cfg.dropout)
+                    for p in partitions]
+    else:
+        encoders = [MIMICMLPEncoder(cfg.state_size, p,
+                                    (cfg.encoder_hidd_units,
+                                     cfg.encoder_hidd_units),
+                                    dropout=cfg.dropout)
+                    for p in partitions]
     decoders = [MLPDecoder(cfg.state_size,
                            (cfg.decoder_hidd_units, cfg.decoder_hidd_units), 2)
                 for _ in targets]

@@ -5,8 +5,8 @@ twin of ``multimodn_tpu/serving.py``).
 every decoder after each step. ``export_model`` / ``load_model`` write and
 read the JAX package's format, ``config.json`` + ``params.npz``, so a model
 exported by either package loads in the other. It rebuilds the MLP-family,
-SLP and recurrent encoders and the dense decoders; ahead-of-time compiled
-exports come later (ROADMAP.md Queue A, 'Serving').
+SLP, recurrent and attention encoders and the dense decoders; ahead-of-time
+compiled exports come later (ROADMAP.md Queue A, 'Serving').
 """
 from __future__ import annotations
 
@@ -117,7 +117,11 @@ def _unflatten(flat: dict) -> dict:
 def _module_spec(m) -> dict:
     spec = {"class": type(m).__name__}
     for attr in ("state_size", "n_features", "hidden_layers", "dropout_rate",
-                 "n_classes", "unbatched_compat"):
+                 "n_classes", "unbatched_compat", "embed_dim", "n_heads",
+                 "n_layers", "mlp_ratio", "chunk",
+                 # ViTEncoder's geometry, without which it would be rebuilt
+                 # for its constructor's default (32, 32) images.
+                 "image_size", "patch_size", "channels"):
         if hasattr(m, attr):
             v = getattr(m, attr)
             spec[attr] = list(v) if isinstance(v, tuple) else v

@@ -496,3 +496,86 @@ def test_titanic_pipeline_on_cuda(cuda, name, tmp_path, monkeypatch):
     assert np.isfinite(history.loss["train"][0]).all()
     assert (tmp_path / "results" / f"{name}.csv").exists()
     assert (fc.FUSED_CHAIN.launches, fa.FUSED_ADAM.launches) == launches
+
+
+@pytest.mark.cuda
+def test_presence_penalty_loss_and_gradients_on_cuda_match_cpu(cuda):
+    """The penalised loss (lambda 25, with injected presence dropout) and
+    every gradient leaf of the MIMIC model on both devices, from the same
+    weights, batch, padded tail and dropout mask: cuBLAS and the CPU sum
+    each product in another order (~1e-7 relative), so the loss agrees to
+    1e-6 relative and the gradients to 1e-5."""
+    from multimodn_tpu_torch.core import step
+    from multimodn_tpu_torch.core.losses import resolve_criterion
+    from multimodn_tpu_torch.core.tree import tree_map
+
+    def model(device):
+        return MultiModN(
+            50, [tenc.MIMICMLPEncoder(50, w, (32, 32), 0.0)
+                 for w in (10, 1024, 768, 99)],
+            [tdec.MLPDecoder(50, (32, 32), 2) for _ in range(2)], 1.0, 0.5,
+            seed=6, presence_dropout=0.3, presence_penalty=25.0,
+            device=device)
+
+    gpu, cpu = model(cuda), model("cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.default_rng(2)
+    X = rng.normal(size=(16, 1901)).astype(np.float32)
+    X[::3, 10:1034] = np.nan
+    X[1::5, 1034:1802] = np.nan
+    y = (X[:, :2] > 0).astype(np.int64)
+    mask = np.ones(16, np.float32)
+    mask[13:] = 0.0
+    drop = step.draw_presence_dropout(torch.Generator().manual_seed(0), 16,
+                                      4, 0.3, "cpu")
+    out = {}
+    for m in (gpu, cpu):
+        dev = m.device
+        fn = step.make_batch_loss_fn(
+            m.encoders, m.decoders, m.init_state, resolve_criterion(None),
+            m.err_penalty, m.state_change_penalty,
+            tuple((i, i) for i in range(4)), "sample",
+            presence_dropout=0.3, presence_penalty=25.0)
+        live = tree_map(lambda t: t.detach().requires_grad_(), m.params)
+        data = tuple(torch.as_tensor(X[:, a:b], device=dev) for a, b in
+                     ((0, 10), (10, 1034), (1034, 1802), (1802, 1901)))
+        loss, _ = fn(live, data, torch.as_tensor(y, device=dev),
+                     torch.as_tensor(mask, device=dev), None, 0, True,
+                     drop=drop.to(dev))
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+        out[dev.type] = (loss.item(), [g.cpu().numpy() for g in grads])
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-6)
+    assert len(out["cuda"][1]) == 37
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_transformer_training_on_cuda_matches_cpu(cuda):
+    """A MultiModN of transformer encoders at the MIMIC transformer
+    pipeline's widths (embed 128, 4 heads, 2 layers, chunk 64; sources of
+    10, 1024 and 99 features) answers the same on both devices (1e-5) and
+    takes 3 Adam steps with a NaN modality (Adam may move a near-zero
+    gradient's parameter by up to lr per step the other way: 3 lr)."""
+    widths = (10, 1024, 99)
+
+    def model(device):
+        return MultiModN(
+            50, [tenc.TransformerEncoder(50, w, embed_dim=128, n_heads=4,
+                                         n_layers=2, chunk=min(64, w))
+                 for w in widths],
+            [tdec.MLPDecoder(50, (32, 32), 2)], 1.0, 0.0, seed=2,
+            device=device)
+
+    gpu, cpu = model(cuda), model("cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.default_rng(3)
+    x = [rng.normal(size=(6, w)).astype(np.float32) for w in widths]
+    for g, c in zip(gpu.predict_proba(x), cpu.predict_proba(x)):
+        np.testing.assert_allclose(g, c, rtol=0, atol=1e-5)
+    launches = (fc.FUSED_CHAIN.launches, fa.FUSED_ADAM.launches)
+    err = _pair_step(model, lambda: Adam(1e-3), widths)
+    assert err <= 3 * 1e-3
+    assert (fc.FUSED_CHAIN.launches, fa.FUSED_ADAM.launches) == launches
+    with pytest.raises(TypeError, match="MLP-family"):
+        gpu.fused_forward(x)

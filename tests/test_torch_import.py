@@ -123,6 +123,46 @@ def test_mimic_pipelines_run_without_jax_pandas_or_sklearn(tmp_path):
     assert proc.stdout.strip().endswith("ok")
 
 
+def test_mnar_protocol_and_transformer_run_without_jax_pandas_or_sklearn(
+        tmp_path):
+    """The MNAR protocol runner (two levels, sample + lambda 25) and the
+    transformer pipeline for one epoch on the CPU at a tiny size, in a
+    process where importing jax, the JAX package, pandas or scikit-learn
+    fails."""
+    script = textwrap.dedent("""
+        import os, sys
+        for name in ("jax", "multimodn_tpu", "pandas", "sklearn"):
+            sys.modules[name] = None       # any import of them now fails
+        from multimodn_tpu_torch.data import mimic
+        mimic.DEFAULT_CACHE_ROOT = os.path.join(sys.argv[1], "cache")
+        os.environ["MULTIMODN_STORAGE"] = os.path.join(sys.argv[1], "store")
+        from multimodn_tpu_torch.pipelines.mimic import (
+            common, mimic_transformer_pipeline as transformer,
+            mnar_protocol as proto)
+        proto.MISS_PERCS = (0.0, 100.0)
+        summary = proto.main(patients=24, epochs=1, nfold=2,
+                             nan_skip="sample", presence_penalty=25.0,
+                             device="cpu")
+        assert list(summary["count"]) == [4] * 6, summary
+        cfg = common.MimicConfig(sources=["de", "vd", "ts_ce"], nfold=2,
+                                 synthetic_patients=24, transformer_embed=8,
+                                 transformer_heads=2, transformer_layers=1)
+        rows = transformer.main(["-e", "1"], cfg, device="cpu")
+        assert len(rows) == 8, rows
+        leaked = sorted(k for k in sys.modules if k.split(".")[0] in
+                        ("jax", "multimodn_tpu", "pandas", "sklearn")
+                        and sys.modules[k] is not None)
+        assert not leaked, leaked
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp_path)],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300, env={**os.environ,
+                                            "MULTIMODN_MIMIC_EMBED_PATH": ""})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
 @pytest.fixture()
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -227,8 +227,6 @@ def test_parse_args_matches_jax():
 @pytest.mark.parametrize("option, match", [
     ({"stream_folds": True}, "item 15"),
     ({"resume_dir": "/nonexistent"}, "item 13"),
-    ({"encoder_type": "transformer"}, "item 18"),
-    ({"presence_penalty": 0.1}, "item 11"),
 ])
 def test_unported_pipeline_options_raise(option, match):
     from multimodn_tpu_torch.pipelines.mimic import mimic_multi_task_pipeline
@@ -304,16 +302,25 @@ def _read(path):
     return rows[0], rows[1:]
 
 
-# argv, CSV rows, and the best checkpoints the port saves under -m (on by
-# default; the MNAR script saves none): one per target and fold. One epoch
-# each: the JAX scripts' compiles take most of these tests' time, and
-# best-epoch selection over several epochs is held against JAX in the
-# kfold_fit_best tests above.
+# argv, CSV rows, the best checkpoints the port saves under -m (on by
+# default; the MNAR script saves none): one per target and fold, and the
+# configuration beyond the common one. One epoch each: the JAX scripts'
+# compiles take most of these tests' time, and best-epoch selection over
+# several epochs is held against JAX in the kfold_fit_best tests above. The
+# transformer case runs the JAX single-task script with the configuration
+# the JAX transformer script builds (it takes no cfg), at tiny widths.
 PIPELINES = {
-    "single": ("mimic_single_task_pipeline", ["-e", "1"], 8, 4),
-    "multi": ("mimic_multi_task_pipeline", ["-e", "1"], 8, 2),
+    "single": ("mimic_single_task_pipeline", ["-e", "1"], 8, 4, {}),
+    "multi": ("mimic_multi_task_pipeline", ["-e", "1"], 8, 2, {}),
     "mnar": ("mimic_single_task_mnar_missingness_pipeline",
-             ["-e", "1", "-p", "50"], 16, 0),
+             ["-e", "1", "-p", "50"], 16, 0, {}),
+    "mnar_pp25": ("mimic_single_task_mnar_missingness_pipeline",
+                  ["-e", "1", "-p", "50"], 16, 0,
+                  {"nan_skip": "sample", "presence_penalty": 25.0}),
+    "transformer": ("mimic_transformer_pipeline", ["-e", "1"], 8, 4,
+                    {"encoder_type": "transformer", "transformer_embed": 8,
+                     "transformer_heads": 2, "transformer_layers": 1,
+                     "transformer_chunk": 64}),
 }
 
 
@@ -322,12 +329,14 @@ def test_pipeline_csv_matches_jax(tmp_path, monkeypatch, name):
     import importlib
     from pipelines.mimic import common as jcommon
     from multimodn_tpu_torch import checkpoint as tckpt
-    module, argv, n_rows, n_saved = PIPELINES[name]
-    jmain = importlib.import_module(f"pipelines.mimic.{module}").main
+    module, argv, n_rows, n_saved, extra = PIPELINES[name]
+    jmodule = "mimic_single_task_pipeline" if name == "transformer" \
+        else module
+    jmain = importlib.import_module(f"pipelines.mimic.{jmodule}").main
     tmain = importlib.import_module(
         f"multimodn_tpu_torch.pipelines.mimic.{module}").main
     kw = dict(sources=["de", "vd", "ts_ce"], nfold=2, synthetic_patients=40,
-              dropout=0.0)
+              dropout=0.0, **extra)
     monkeypatch.delenv("MULTIMODN_MIMIC_EMBED_PATH", raising=False)
     monkeypatch.setattr(tmimic, "DEFAULT_CACHE_ROOT", str(tmp_path / "cache"))
     files = {}

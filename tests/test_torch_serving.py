@@ -205,11 +205,19 @@ def test_port_export_loads_in_jax(tmp_path):
 
 
 def test_load_model_rejects_unported_classes(tmp_path):
-    jm = jmm.MultiModN(4, [jenc.TransformerEncoder(4, 6, embed_dim=8,
-                                                   n_heads=2, n_layers=1)],
+    """An export naming the JAX package's ``ResNet`` image encoder, which
+    is not ported: its spec is written as the JAX ``export_model`` writes
+    one (a real ResNet-18 export holds ~11 M parameters)."""
+    import json
+    jm = jmm.MultiModN(4, [jenc.MLPEncoder(4, 6, (5,))],
                        [jdec.LogisticDecoder(4)], 1.0, 0.0)
     jmm.export_model(jm, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="TransformerEncoder"):
+    path = tmp_path / "config.json"
+    config = json.loads(path.read_text())
+    config["encoders"][0] = {"class": "ResNet", "state_size": 4,
+                             "n_features": None, "freeze": False}
+    path.write_text(json.dumps(config))
+    with pytest.raises(NotImplementedError, match="'ResNet'"):
         tmm.load_model(str(tmp_path), device="cpu")
 
 

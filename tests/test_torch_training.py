@@ -402,7 +402,7 @@ def test_unported_training_options_raise():
     _, tl = _loaders(X, y, SMALL_WIDTHS)
     encs = [tenc.MIMICMLPEncoder(SMALL_S, w, (8,)) for w in SMALL_WIDTHS]
     decs = [tdec.LogisticDecoder(SMALL_S)]
-    for kw in ({"shuffle_mode": True}, {"presence_dropout": 0.1}):
+    for kw in ({"shuffle_mode": True},):
         tm = tmm.MultiModN(SMALL_S, encs, decs, 1.0, 0.0, device="cpu", **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tm.train_epoch(tl, tmm.Adam(0.01))
