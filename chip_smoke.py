@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --protocol-only --patients 6485 --epochs 1
+    python3 chip_smoke.py --protocol-only --stream-folds --patients 6485 --epochs 2
     python3 chip_smoke.py --mnar-only --epochs 10
 
 The first form is the smoke run; the second times phase 8 alone at another
-data size and depth; the third runs the MNAR protocol grid alone. Phases,
-each fatal on failure:
+data size and depth, the third with every fold's batches streamed; the
+fourth runs the MNAR protocol grid alone. Phases, each fatal on failure:
 
 1. the card's name and power limit, torch and CUDA versions; TF32 off;
 2. build the fused-chain kernel from ``multimodn_tpu_torch/csrc``;
@@ -94,11 +95,32 @@ each fatal on failure:
    ``ViTEncoder`` at its constructor defaults; ``torch.profiler`` over 8
    training steps at batch 16 and 1024 (kernels and device ms per step,
    busy share);
-12. the earlier designs' times from PERF.md on a line of their own, the
-   ``mnar`` and ``transformer`` lines, one ``{"kernels": [...]}`` line of
-   this run's numbers (K1's with ``titanic`` and ``mnar`` blocks), the
-   script's wall time, the card's line, and last the ``{"ok": true, ...}``
-   line.
+12. resumable fits and the streaming and disk loaders at the MIMIC
+   model's full width with ``Adam8bit`` (fp8) on phase 6's cohort: two
+   child processes (``fit_best_resumable`` on shuffled ArrayLoaders,
+   ``fit_best_streaming`` with ``checkpoint_dir``) are SIGKILLed right
+   after their first epoch's checkpoint, and each run resumed here must
+   equal its uninterrupted run bit for bit (parameters, moment codes as
+   uint8, scales, scores, best epoch) with K2 launched once per step of
+   the resumed epochs; ``fit_best_streaming`` must equal ``fit_best`` on
+   fixed-order ArrayLoaders of the same rows bit for bit; the validation
+   split exported by ``export_streaming_matrix`` and written as a CSV
+   streams through ``NpyStreamingLoader`` and ``CSVStreamingLoader`` (the
+   native bridge built from ``native/*.cpp`` with g++) in the
+   StreamingLoader's batches; the single-task MIMIC pipeline (120 patients,
+   5 folds, 2 epochs) with ``resume_dir``, invoked again on that finished
+   ``resume_dir``, and with ``stream_folds`` writes the default run's
+   results CSV byte for byte; the resumed best model goes
+   through ``export_model`` -> ``load_model`` and serves 8 requests through
+   K1 against the plain chain; training steps/s over ArrayLoader and
+   streamed batches of 16 and 1024, the share of the streamed copies'
+   device time that overlaps a kernel (``torch.profiler``), and a resume
+   payload's write time;
+13. the earlier designs' times from PERF.md on a line of their own, the
+   ``mnar``, ``transformer`` and ``resume`` lines, one ``{"kernels":
+   [...]}`` line of this run's numbers (K1's with ``titanic``, ``mnar`` and
+   ``resumed`` blocks, K2's with a ``resume`` block), the script's wall
+   time, the card's line, and last the ``{"ok": true, ...}`` line.
 
 ``--mnar-only`` runs phase 1 and the MNAR protocol grid alone at the
 published cohort scale (300 patients, 5 folds) for ``batch``, ``sample``
@@ -110,10 +132,13 @@ and prints no result.
 import argparse
 import contextlib
 import csv
+import glob
 import importlib
 import json
 import os
+import pickle
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -939,9 +964,11 @@ def scratch_storage(prefix):
         shutil.rmtree(work, ignore_errors=True)
 
 
-def run_protocol(device, patients=None, epochs=PROTOCOL_EPOCHS):
+def run_protocol(device, patients=None, epochs=PROTOCOL_EPOCHS,
+                 stream_folds=False):
     """Phase 8: the three MIMIC pipelines on the card, on the synthetic
-    table of ``patients`` patients (default: the pipelines' own)."""
+    table of ``patients`` patients (default: the pipelines' own), their
+    folds streamed with ``stream_folds``."""
     from multimodn_tpu_torch.baselines.haim import HAIM
     from multimodn_tpu_torch.data import mimic as mimic_data
     from multimodn_tpu_torch.data import table as table_io
@@ -997,7 +1024,8 @@ def run_protocol(device, patients=None, epochs=PROTOCOL_EPOCHS):
             # kept from the one before (the cache files on disk are).
             table_io._NUMERIC_CACHE.clear()
             del parses[:]
-            cfg = common.MimicConfig(synthetic_patients=patients)
+            cfg = common.MimicConfig(synthetic_patients=patients,
+                                     stream_folds=stream_folds)
             torch.cuda.synchronize()
             FUSED_CHAIN.launches = FUSED_ADAM.launches = 0
             n_models = len(models)
@@ -1033,6 +1061,7 @@ def run_protocol(device, patients=None, epochs=PROTOCOL_EPOCHS):
             miss_s = sum(first.values())
             other = wall - sum(seconds.values())
             r = {"patients": patients, "epochs": epochs,
+                 "stream_folds": stream_folds,
                  "rows": len(table), "wall_s": wall,
                  "data_and_cache_s": seconds.get("data", 0.0),
                  "modn_folds_s": seconds.get("modn", 0.0),
@@ -1607,6 +1636,402 @@ def run_transformer(device):
             "profile": profiles}
 
 
+# Phase 12: resumable fits and the streaming and disk loaders at the MIMIC
+# model's full width with Adam8bit (fp8): a child process SIGKILLed after a
+# checkpoint and resumed here, streamed selection against ArrayLoaders, the
+# disk loaders' batches, the single-task pipeline with resume_dir and with
+# stream_folds, the resumed best model served through K1, and the rates.
+RESUME_EPOCHS = 3
+STREAM_RATE_BATCHES = {16: TRAIN_SAMPLES, 1024: 16 * 1024}
+RESUME_PIPELINE_EPOCHS = 2
+RESUME_CHILD_TIMEOUT = 600
+
+
+def resume_loaders(train_set, val_set, kind):
+    """The resumable runs' loaders over phase 6's cohort: shuffled
+    ArrayLoaders for ``fit_best_resumable``, StreamingLoaders (or their
+    fixed-order ArrayLoader twins) for ``fit_best_streaming``."""
+    from multimodn_tpu_torch.data import StreamingLoader
+    if kind == "array":
+        return (ArrayLoader(train_set, TRAIN_BATCH, shuffle=True, seed=0),
+                ArrayLoader(val_set, TRAIN_BATCH))
+    cls = StreamingLoader if kind == "stream" else ArrayLoader
+    return cls(train_set, TRAIN_BATCH), cls(val_set, TRAIN_BATCH)
+
+
+def resumable_fit(kind, device, ckpt_dir, on_chunk=None):
+    """``fit_best_resumable`` (``kind='array'``) or ``fit_best_streaming``
+    with ``checkpoint_dir`` (``'stream'``), one checkpoint per epoch."""
+    from multimodn_tpu_torch.checkpoint import fit_best_resumable
+    from multimodn_tpu_torch.data import fit_best_streaming
+    _ds, train_set, val_set = mimic_training_loaders()
+    tr, va = resume_loaders(train_set, val_set, kind)
+    model = mimic_model(device)
+    history = MultiModNHistory([f"t{d}" for d in range(MIMIC_TARGETS)])
+    if kind == "array":
+        info = fit_best_resumable(model, tr, Adam8bit(ADAM_LR),
+                                  "cross_entropy", epochs=RESUME_EPOCHS,
+                                  checkpoint_dir=ckpt_dir, val_loader=va,
+                                  chunk_epochs=1, history=history,
+                                  on_chunk=on_chunk)
+    else:
+        info = fit_best_streaming(model, tr, Adam8bit(ADAM_LR),
+                                  "cross_entropy", epochs=RESUME_EPOCHS,
+                                  val_loader=va, history=history,
+                                  checkpoint_dir=ckpt_dir,
+                                  checkpoint_every=1, on_chunk=on_chunk)
+    return model, info, tr
+
+
+def resume_child(kind, ckpt_dir, device="cuda"):
+    """A child process's run: SIGKILLed right after its first checkpoint
+    lands (it never returns)."""
+    def kill(done, total):
+        os.kill(os.getpid(), signal.SIGKILL)
+
+    resumable_fit(kind, torch.device(device), ckpt_dir, on_chunk=kill)
+    raise AssertionError("the resumable fit wrote no checkpoint")
+
+
+def kill_children(ckpt_root):
+    """Both children at once, each SIGKILLed after its first checkpoint;
+    returns their checkpoint directories."""
+    dirs = {kind: os.path.join(ckpt_root, kind) for kind in ("array",
+                                                             "stream")}
+    procs = {kind: subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--resume-child", kind,
+         d], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for kind, d in dirs.items()}
+    for kind, proc in procs.items():
+        try:
+            _out, err = proc.communicate(timeout=RESUME_CHILD_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError(f"resume child {kind}: timed out")
+        if proc.returncode != -signal.SIGKILL:
+            raise AssertionError(f"resume child {kind}: exit "
+                                 f"{proc.returncode}\n{err[-3000:]}")
+    return dirs
+
+
+def state_leaves(model):
+    """Parameters, moment codes and scales of ``model``."""
+    return [t.detach() for t in tree_leaves([model.params, model.opt_state])
+            if t is not None]
+
+
+def bit_mismatches(a, b):
+    """Elements whose bits differ between two models' parameters and
+    optimizer states (moment codes compared as uint8); raises when the two
+    states do not hold the same leaves."""
+    la, lb = state_leaves(a), state_leaves(b)
+    if len(la) != len(lb):
+        raise AssertionError(f"{len(la)} state leaves against {len(lb)}")
+    n = 0
+    for x, y in zip(la, lb):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            raise AssertionError(
+                f"a {tuple(x.shape)} {x.dtype} leaf against a "
+                f"{tuple(y.shape)} {y.dtype} one")
+        bits = torch.uint8 if x.element_size() == 1 else torch.int32
+        n += int((x.view(bits) != y.view(bits)).sum())
+    return n
+
+
+def check_resume(device, work):
+    """Kill-and-resume for both resume paths, each against its
+    uninterrupted run, and streamed selection against ArrayLoaders; the
+    main path is each resumed call, with K2 counted over it alone."""
+    from multimodn_tpu_torch.data import fit_best_streaming
+    _ds, train_set, val_set = mimic_training_loaders()
+    per_step = fa.launches_per_update(
+        [tuple(t.shape) for t in tree_leaves(mimic_model(device).params)])
+    t0 = time.perf_counter()
+    dirs = kill_children(os.path.join(work, "ck"))
+    children_s = time.perf_counter() - t0
+    out = {"children_s": children_s}
+    refs = {}
+    # The uninterrupted runs: fit_best on the shuffled loaders; fit_best on
+    # fixed-order ArrayLoaders and fit_best_streaming on the same rows.
+    for kind in ("array", "fixed", "stream"):
+        model = mimic_model(device)
+        tr, va = resume_loaders(train_set, val_set, kind)
+        if kind == "stream":
+            info = fit_best_streaming(model, tr, Adam8bit(ADAM_LR),
+                                      "cross_entropy", epochs=RESUME_EPOCHS,
+                                      val_loader=va)
+        else:
+            info = model.fit_best(tr, Adam8bit(ADAM_LR), "cross_entropy",
+                                  epochs=RESUME_EPOCHS, val_loader=va)
+        refs[kind] = (model, info)
+    torch.cuda.synchronize()
+    mism = bit_mismatches(refs["fixed"][0], refs["stream"][0])
+    scores_equal = np.array_equal(refs["fixed"][1]["scores"],
+                                  refs["stream"][1]["scores"])
+    out["stream_vs_array"] = {"mismatching_elements": mism,
+                              "scores_equal": scores_equal,
+                              "best_epoch": refs["stream"][1]["best_epoch"]}
+    log(f"  fit_best_streaming vs fit_best on ArrayLoaders: "
+        f"{json.dumps(out['stream_vs_array'])}")
+    if mism or not scores_equal:
+        raise AssertionError("streamed selection differs from fit_best on "
+                             "ArrayLoaders of the same rows")
+    resumed = {}
+    for kind, ref in (("array", refs["array"]), ("stream", refs["stream"])):
+        torch.cuda.synchronize()
+        FUSED_CHAIN.launches = FUSED_ADAM.launches = 0
+        t0 = time.perf_counter()
+        model, info, tr = resumable_fit(kind, device, dirs[kind])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = FUSED_ADAM.launches
+        steps = (RESUME_EPOCHS - 1) * tr.n_batches
+        r = {"resumed_epochs": RESUME_EPOCHS - 1, "steps": steps,
+             "k2_launches": launches, "k1_launches": FUSED_CHAIN.launches,
+             "wall_s": wall, "best_epoch": info["best_epoch"],
+             "best_score": info["best_score"],
+             "scores": [float(s) for s in info["scores"]],
+             "mismatching_elements": bit_mismatches(model, ref[0]),
+             "scores_equal": np.array_equal(info["scores"],
+                                            ref[1]["scores"])}
+        log(f"  {kind} resumed after SIGKILL: {json.dumps(r)}")
+        if r["mismatching_elements"] or not r["scores_equal"] or \
+                info["best_epoch"] != ref[1]["best_epoch"]:
+            raise AssertionError(f"{kind}: the resumed run differs from the "
+                                 f"uninterrupted one")
+        if launches != per_step * steps or FUSED_CHAIN.launches:
+            raise AssertionError(f"{kind}: K2 launched {launches} times for "
+                                 f"{steps} steps of {per_step}")
+        out[kind] = r
+        resumed[kind] = model
+    return out, resumed
+
+
+def check_disk_loaders(work):
+    """The validation split exported as a memmap matrix and as a CSV;
+    both disk loaders' batches against the StreamingLoader's."""
+    from multimodn_tpu_torch.data import (CSVStreamingLoader,
+                                          NpyStreamingLoader,
+                                          StreamingLoader,
+                                          export_streaming_matrix)
+    from multimodn_tpu_torch.data import native
+    _ds, _train, val_set = mimic_training_loaders()
+    t0 = time.perf_counter()
+    native.get_lib()
+    build_s = time.perf_counter() - t0
+    npy, widths, n_targets = export_streaming_matrix(
+        val_set, os.path.join(work, "val.npy"))
+    matrix = np.load(npy)
+    path = os.path.join(work, "val.csv")
+    with open(path, "w") as f:
+        f.write(",".join(f"c{j}" for j in range(matrix.shape[1])) + "\n")
+        for row in matrix:
+            f.write(",".join("" if np.isnan(v) else repr(float(v))
+                             for v in row) + "\n")
+    want = list(StreamingLoader(val_set, TRAIN_BATCH).iter_batches())
+    out = {"native_build_s": build_s, "rows": int(matrix.shape[0]),
+           "columns": int(matrix.shape[1]),
+           "csv_bytes": os.path.getsize(path)}
+    for name, loader in (
+            ("npy", NpyStreamingLoader(npy, widths, n_targets, TRAIN_BATCH)),
+            ("csv", CSVStreamingLoader(path, widths, n_targets,
+                                       TRAIN_BATCH))):
+        t0 = time.perf_counter()
+        got = list(loader.iter_batches())
+        read_s = time.perf_counter() - t0
+        bad = sum(
+            int(sum((~((a == b) | (np.isnan(a) & np.isnan(b)))).sum()
+                    for a, b in zip(gd, wd)) + (gt != wt).sum()
+                + (gm != wm).sum())
+            for (gd, gt, gm), (wd, wt, wm) in zip(got, want))
+        out[name] = {"batches": len(got), "mismatching_elements": bad,
+                     "epoch_read_s": read_s}
+        if len(got) != len(want) or bad:
+            raise AssertionError(f"{name} loader: {bad} elements differ from "
+                                 f"the StreamingLoader's batches")
+    log(f"  disk loaders: {json.dumps(out)}")
+    return out
+
+
+def run_resume_pipelines(device, work):
+    """The single-task MIMIC pipeline (120 patients, 5 folds) by default,
+    with resume_dir, invoked again on that finished resume_dir (every fold
+    resumed, no step taken), and with stream_folds: the results CSVs
+    byte-equal."""
+    from multimodn_tpu_torch.pipelines.mimic import common
+    from multimodn_tpu_torch.pipelines.mimic import \
+        mimic_single_task_pipeline as single
+    out, texts = {}, {}
+    resume = {"resume_dir": os.path.join(work, "pipeline_ck")}
+    variants = ("resume_dir", "resume_dir_again", "stream_folds")
+    for name, extra in (("default", {}), ("resume_dir", resume),
+                        ("resume_dir_again", resume),
+                        ("stream_folds", {"stream_folds": True})):
+        store = os.path.join(work, "store_" + name)
+        os.environ["MULTIMODN_STORAGE"] = store
+        torch.cuda.synchronize()
+        FUSED_CHAIN.launches = FUSED_ADAM.launches = 0
+        t0 = time.perf_counter()
+        rows = single.main(["-e", str(RESUME_PIPELINE_EPOCHS)],
+                           common.MimicConfig(**extra), device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(os.path.join(store, "nips", "results",
+                               "mimic_single_task_(auc + bac).csv")) as f:
+            texts[name] = f.read()
+        out[name] = {"wall_s": wall, "rows": len(rows),
+                     "launches": [FUSED_CHAIN.launches,
+                                  FUSED_ADAM.launches]}
+        if len(rows) != 20:
+            raise AssertionError(f"single-task with {name}: {len(rows)} rows")
+    for name in variants:
+        out[name]["csv_equal_to_default"] = texts[name] == texts["default"]
+    log(f"  single-task pipeline: {json.dumps(out)}")
+    if not all(out[n]["csv_equal_to_default"] for n in variants):
+        raise AssertionError("a results CSV differs from the default path's")
+    done = []
+    for path in glob.glob(os.path.join(resume["resume_dir"], "*", "*",
+                                       "resume_best_latest.pkl")):
+        with open(path, "rb") as f:
+            done.append(pickle.load(f)["epoch"])
+    out["resume_dir"]["finished_fold_payloads"] = done
+    folds = out["resume_dir"]["rows"] // 2     # a MultiModN and a HAIM row
+    if done != [RESUME_PIPELINE_EPOCHS] * folds:
+        raise AssertionError(f"resume_dir holds fold payloads at epochs "
+                             f"{done}, not {folds} finished folds")
+    return out
+
+
+def copy_overlap(prof, wall_ms):
+    """Device time of the host-to-device copies, the share of it that ran
+    while a kernel ran (the union of kernel intervals), and the kernels'
+    busy share of the profiled epoch's ``wall_ms``."""
+    copies, kernels = [], []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        if "Memcpy HtoD" in e.name:
+            copies.append(span)
+        elif "Memcpy" not in e.name and "Memset" not in e.name:
+            kernels.append(span)
+    union = []
+    for s, t in sorted(kernels):
+        if union and s <= union[-1][1]:
+            union[-1][1] = max(union[-1][1], t)
+        else:
+            union.append([s, t])
+    total = sum(t - s for s, t in copies)
+    hidden = 0.0
+    for s, t in copies:
+        for u, v in union:
+            hidden += max(0.0, min(t, v) - max(s, u))
+    busy_ms = sum(v - u for u, v in union) / 1e3
+    return {"copies": len(copies), "copy_ms": total / 1e3,
+            "hidden_share": hidden / total if total else None,
+            "kernel_busy_share": busy_ms / wall_ms if union else None}
+
+
+def stream_rates(device):
+    """Training steps/s over ArrayLoader and StreamingLoader batches of 16
+    and 1024 (Adam8bit, one warm epoch, then one timed epoch each); the
+    host's ms per streamed batch to assemble it, and to assemble and copy it
+    (no training); the share of the streamed copies' device time that
+    overlapped a kernel, and the kernels' busy share (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodn_tpu_torch.data import (StreamingLoader,
+                                          train_epoch_streaming)
+    from multimodn_tpu_torch.data.streaming import device_batches
+    out = {}
+    for B, n in STREAM_RATE_BATCHES.items():
+        ds = random_dataset(MIMIC_WIDTHS, n, seed=8)
+        r = {"samples": n}
+        for kind in ("array", "stream"):
+            model, opt = mimic_model(device), Adam8bit(ADAM_LR)
+            loader = ArrayLoader(ds, B) if kind == "array" \
+                else StreamingLoader(ds, B)
+
+            def epoch():
+                if kind == "array":
+                    model.train_epoch(loader, opt, "cross_entropy")
+                else:
+                    train_epoch_streaming(model, loader, opt,
+                                          "cross_entropy")
+                torch.cuda.synchronize()
+
+            epoch()
+            t0 = time.perf_counter()
+            epoch()
+            r[f"{kind}_steps_per_s"] = loader.n_batches / (
+                time.perf_counter() - t0)
+            if kind == "stream":
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    epoch()
+                    wall_ms = 1e3 * (time.perf_counter() - t0)
+                r.update(copy_overlap(prof, wall_ms))
+                t0 = time.perf_counter()
+                n_batches = sum(1 for _ in loader.iter_batches())
+                r["assemble_ms_per_batch"] = 1e3 * (
+                    time.perf_counter() - t0) / n_batches
+                t0 = time.perf_counter()
+                for _ in device_batches(loader, device):
+                    pass
+                torch.cuda.synchronize()
+                r["assemble_and_copy_ms_per_batch"] = 1e3 * (
+                    time.perf_counter() - t0) / n_batches
+        r["array_step_ms"] = 1e3 / r["array_steps_per_s"]
+        r["stream_step_ms"] = 1e3 / r["stream_steps_per_s"]
+        out[str(B)] = r
+    log(f"  streamed vs ArrayLoader training: {json.dumps(out)}")
+    return out
+
+
+def payload_write_ms(model, loader, work, reps=5):
+    """Median time of one resume payload write (the whole training state of
+    the resumed MIMIC model), and its size."""
+    from multimodn_tpu_torch import checkpoint
+    path = os.path.join(work, "payload.pkl")
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        checkpoint._write_resume_payload(
+            path, model, RESUME_EPOCHS, None, loader,
+            best={"params": model.state_dict(), "score": 0.0, "epoch": 0},
+            scores=[0.0] * RESUME_EPOCHS)
+        times.append(1e3 * (time.perf_counter() - t0))
+    return {"ms": statistics.median(times), "bytes": os.path.getsize(path)}
+
+
+def run_resume(device):
+    """Phase 12."""
+    if foreign_modules():
+        raise AssertionError(f"loaded before phase 12: {foreign_modules()}")
+    with scratch_storage("chip_smoke_resume_") as work:
+        resume, resumed = check_resume(device, work)
+        disk = check_disk_loaders(work)
+        pipelines = run_resume_pipelines(device, work)
+        loaded = export_and_load(resumed["array"],
+                                 os.path.join(work, "export"), device,
+                                 "resumed")
+        served = serve_trained("resumed_best", loaded,
+                               serving_requests(seed=12), device)
+        log(f"  K1 serving the resumed best model: {json.dumps(served)}")
+        _ds, train_set, val_set = mimic_training_loaders()
+        write = payload_write_ms(resumed["array"],
+                                 resume_loaders(train_set, val_set,
+                                                "array")[0], work)
+        log(f"  resume payload write: {json.dumps(write)}")
+    rates = stream_rates(device)
+    if foreign_modules():
+        raise AssertionError(f"loaded by phase 12: {foreign_modules()}")
+    return {"resume": resume, "disk": disk, "pipelines": pipelines,
+            "served": served, "payload_write": write, "rates": rates}
+
+
 def build_kernels():
     """Build every kernel library at once (one nvcc per source)."""
     with ThreadPoolExecutor(max_workers=2) as pool:
@@ -1639,7 +2064,20 @@ def parse_args(argv=None):
     p.add_argument("--epochs", type=int, default=PROTOCOL_EPOCHS,
                    help="epochs of each fold in phase 8 (and of the grid "
                         "with --mnar-only)")
+    p.add_argument("--stream-folds", action="store_true",
+                   help="with --protocol-only: stream every fold's batches "
+                        "(MimicConfig.stream_folds)")
+    p.add_argument("--resume-child", nargs=2, metavar=("KIND", "DIR"),
+                   help=argparse.SUPPRESS)
     return p.parse_args(argv)
+
+
+def exact_math():
+    """No TF32 anywhere: the card's products are fp32, as in the plain
+    versions and every comparison here."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
 
 
 def main(argv=None) -> int:
@@ -1649,18 +2087,20 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     device = torch.device("cuda")
+    exact_math()
+    if args.resume_child:
+        resume_child(*args.resume_child)
 
     log("== phase 1: device")
     card = card_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}, {torch.cuda.get_device_name(0)}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
     if args.protocol_only:
-        log("== phase 8: MIMIC protocol")
-        protocol = run_protocol(device, args.patients, args.epochs)
+        log("== phase 8: MIMIC protocol"
+            + (", streamed folds" if args.stream_folds else ""))
+        protocol = run_protocol(device, args.patients, args.epochs,
+                                stream_folds=args.stream_folds)
         log("protocol: " + json.dumps(protocol))
         log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
         log(card)
@@ -1721,6 +2161,10 @@ def main(argv=None) -> int:
     log(card_line())
     transformer = run_transformer(device)
 
+    log("== phase 12: resumable fits, streaming and disk loaders")
+    log(card_line())
+    resume = run_resume(device)
+
     main_b = mimic[SERVING_BATCH]
     entry = {
         "name": "fused_chain",
@@ -1747,6 +2191,10 @@ def main(argv=None) -> int:
             "max_abs_err", "batch", "ms", "plain_ms", "bound_ms",
             "bound_by")} for label, r in titanic["served"].items()},
         "mnar": {k: mnar_served[k] for k in (
+            "pipeline", "requests", "launches", "launches_per_request",
+            "max_abs_err", "batch", "ms", "plain_ms", "bound_ms",
+            "bound_by")},
+        "resumed": {k: resume["served"][k] for k in (
             "pipeline", "requests", "launches", "launches_per_request",
             "max_abs_err", "batch", "ms", "plain_ms", "bound_ms",
             "bound_by")},
@@ -1778,6 +2226,9 @@ def main(argv=None) -> int:
             for name, r in runs.items()},
         "training_profile": profile,
         "device_vs_cpu_max_abs_err": device_err,
+        "resume": {kind: {k: resume["resume"][kind][k] for k in (
+            "k2_launches", "steps", "mismatching_elements")}
+            for kind in ("array", "stream")},
     }
     log("earlier designs (not measured in this run): "
         + json.dumps(EARLIER))
@@ -1786,6 +2237,8 @@ def main(argv=None) -> int:
         "pipelines", "quickstart", "profile")}))
     log("mnar: " + json.dumps({"protocol": mnar, "served": mnar_served}))
     log("transformer: " + json.dumps(transformer))
+    log("resume: " + json.dumps({k: resume[k] for k in (
+        "resume", "disk", "pipelines", "payload_write", "rates")}))
     log(json.dumps({"kernels": [entry, adam_entry]}))
     log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
     log(card)

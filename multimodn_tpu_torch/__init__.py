@@ -19,7 +19,11 @@ is ``csrc/fused_adam.cu``), ``SGD`` and ``AdamW``, ``ArrayLoader``,
 ``baselines``, ``experiments.kfold_fit_best``, ``checkpoint``, the three
 MIMIC pipelines in ``pipelines.mimic``) and the Titanic data and six
 Titanic pipelines (``data.titanic``, ``pipelines.titanic``), without pandas
-or scikit-learn.
+or scikit-learn; resumable fits (``checkpoint.fit_resumable``,
+``fit_best_resumable``, ``CheckpointManager``) and the streaming and disk
+loaders (``data.streaming``, ``data.disk`` over the native reader of
+``data.native``), which the MIMIC pipelines' ``resume_dir`` and
+``stream_folds`` use.
 """
 from multimodn_tpu_torch.convert import opt_state_from_jax, params_from_jax
 from multimodn_tpu_torch.core.history import MultiModNHistory

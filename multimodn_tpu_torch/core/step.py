@@ -1,13 +1,15 @@
 """Batch loss, training and evaluation epochs, selection (PyTorch twin of
 ``multimodn_tpu/core/step.py``) on the unrolled chain.
 
-PyTorch runs eagerly, so an epoch is a Python loop over the loader's
-device-resident batch stacks: forward, ``torch.autograd.grad``, the
-optimizer. Per-batch grid sums and log scalars stay on the device and are
-summed at the end of the epoch; the caller copies them to the host once per
-epoch (``to_host``). Epoch stacks have the layout of ``data.ArrayLoader``:
-modality tensors ``(n_batches, B, F_m)``, targets ``(n_batches, B, D)`` and
-a sample mask ``(n_batches, B)`` that is 0 on padded tail rows.
+PyTorch runs eagerly, so an epoch is a Python loop over ``(batch,
+n_real)`` pairs: forward, ``torch.autograd.grad``, the optimizer. Per-batch
+grid sums and log scalars stay on the device and are summed at the end of
+the epoch; the caller copies them to the host once per epoch
+(``to_host``). The pairs come from an ``ArrayLoader``'s epoch stacks
+(``stack_batches``: modality tensors ``(n_batches, B, F_m)``, targets
+``(n_batches, B, D)``, a sample mask ``(n_batches, B)`` that is 0 on padded
+tail rows) or from a streaming loader (``data.streaming.device_batches``),
+through the same code.
 
 The MNAR mitigations of ``nan_skip='sample'`` (``presence_dropout``,
 ``presence_penalty``) act in training only. The scan and switch chains and
@@ -222,9 +224,13 @@ def to_host(tree):
                                  for p, t in zip(pieces, leaves)])
 
 
-def _batch(stacks, b: int):
+def stack_batches(stacks, counts: Sequence[int]):
+    """``(batch, n_real)`` pairs over an ``ArrayLoader``'s device-resident
+    epoch stacks: ``batch`` is ``(data tuple, targets, sample_mask)`` of
+    batch ``b``, ``n_real`` its unpadded samples."""
     data, targets, mask = stacks
-    return tuple(d[b] for d in data), targets[b], mask[b]
+    for b, n_real in enumerate(counts):
+        yield (tuple(d[b] for d in data), targets[b], mask[b]), n_real
 
 
 def train_batch(loss_fn, optimizer, params, opt_state, batch, generator,
@@ -246,42 +252,51 @@ def train_batch(loss_fn, optimizer, params, opt_state, batch, generator,
                                aux)
 
 
-def run_train_epoch(loss_fn, optimizer, params, opt_state, stacks,
-                    counts: Sequence[int], generator, offset: int):
-    """Every batch of an epoch through ``train_batch``. Returns
-    ``(opt_state, sums, batch_log, offset)``: the per-cell sums of
-    ``GRID_KEYS``, an (n_batches, 3) tensor of (loss, grid mean, state
-    change) per batch, all on the device, and the init-state cycle offset
-    advanced by the real samples."""
+def _grid_sums(ys: List[dict]) -> dict:
+    return {k: torch.stack([y[k] for y in ys]).sum(dim=0) for k in GRID_KEYS}
+
+
+def run_train_epoch(loss_fn, optimizer, params, opt_state, batches,
+                    generator, offset: int):
+    """Every ``(batch, n_real)`` of ``batches`` (``stack_batches`` or a
+    streamed source) through ``train_batch``. Returns ``(opt_state, sums,
+    batch_log, offset, n_batches)``: the per-cell sums of ``GRID_KEYS``, an
+    (n_batches, 3) tensor of (loss, grid mean, state change) per batch, all
+    on the device, the init-state cycle offset advanced by the real samples,
+    and the batches run."""
     ys: List[dict] = []
-    for b, n_real in enumerate(counts):
+    for batch, n_real in batches:
         opt_state, aux = train_batch(loss_fn, optimizer, params, opt_state,
-                                     _batch(stacks, b), generator, offset)
+                                     batch, generator, offset)
         offset += n_real
-        ys.append(aux)
-    sums = {k: torch.stack([y[k] for y in ys]).sum(dim=0) for k in GRID_KEYS}
+        ys.append({k: aux[k] for k in GRID_KEYS + ("loss", "global_err",
+                                                   "global_sc")})
     batch_log = torch.stack([torch.stack([y["loss"], y["global_err"],
                                           y["global_sc"]]) for y in ys])
-    return opt_state, sums, batch_log, offset
+    return opt_state, _grid_sums(ys), batch_log, offset, len(ys)
 
 
 @torch.no_grad()
-def run_eval_epoch(loss_fn, params, stacks, counts: Sequence[int],
-                   offset: int):
-    """Every batch in evaluation mode. Returns ``(sums, final_outputs,
-    offset)``: the grid sums on the device and, per decoder, the
-    final-encoder-row outputs of every (padded) sample,
-    ``(n_batches * B, C_d)``, which the performance suite and the selection
-    score read (multimodn.py:354-357)."""
+def run_eval_epoch(loss_fn, params, batches, offset: int):
+    """Every ``(batch, n_real)`` of ``batches`` in evaluation mode. Returns
+    ``(sums, final_outputs, targets, mask, offset, n_batches)``: the grid
+    sums on the device; per decoder, the final-encoder-row outputs of every
+    (padded) sample, ``(n_batches * B, C_d)``, which the performance suite
+    and the selection score read (multimodn.py:354-357); the targets
+    ``(n_batches * B, D)`` and sample mask ``(n_batches * B,)`` in the same
+    rows; the advanced offset and the batches run."""
     ys: List[dict] = []
-    for b, n_real in enumerate(counts):
-        _, aux = loss_fn(params, *_batch(stacks, b), None, offset, False)
+    targets, masks = [], []
+    for batch, n_real in batches:
+        _, aux = loss_fn(params, *batch, None, offset, False)
         offset += n_real
-        ys.append(aux)
-    sums = {k: torch.stack([y[k] for y in ys]).sum(dim=0) for k in GRID_KEYS}
+        ys.append({k: aux[k] for k in GRID_KEYS + ("final_outputs",)})
+        targets.append(batch[1])
+        masks.append(batch[2])
     outputs = [torch.cat([y["final_outputs"][d] for y in ys])
                for d in range(len(ys[0]["final_outputs"]))]
-    return sums, outputs, offset
+    return (_grid_sums(ys), outputs, torch.cat(targets), torch.cat(masks),
+            offset, len(ys))
 
 
 def make_selection_score(binary_decoders: Sequence[bool]):

@@ -6,7 +6,9 @@ vmapped program, padding folds to a common batch count with empty batches
 that are gated off exactly; it is documented bit-identical to training the
 folds one after another. Here the folds run one after another through
 ``MultiModN.fit_best``, with the same arguments and the same per-fold
-results.
+results. Streaming fold loaders (``data.streaming``, ``data.disk``; the JAX
+package's ``experiments_stream.kfold_fit_best_streamed``) take the same path:
+each fold runs ``fit_best`` over its streamed batches.
 """
 from __future__ import annotations
 
@@ -48,8 +50,12 @@ def kfold_fit_best(
         patience: per-fold early stopping, ``fit_best``'s semantics.
         mesh, fold_axis, on_epoch: not ported (fold sharding across GPUs,
             ROADMAP.md Queue A item 20; progress callbacks, item 6); they
-            raise ``NotImplementedError``, as do streaming loaders (item 15)
-            and models with ``shuffle_mode`` (item 8).
+            raise ``NotImplementedError``, as do models with
+            ``shuffle_mode`` (item 8).
+
+    Streaming folds: every loader streams or none does; no loader may be
+    shuffled (``fit_best_streaming``'s rule) and each needs sized geometry
+    (``n_batches``), as in the JAX package.
 
     Returns:
         Per-fold dicts: {model (best parameters restored, cycle, epoch
@@ -67,10 +73,21 @@ def kfold_fit_best(
         raise NotImplementedError(
             "on_epoch progress callbacks are not ported yet (ROADMAP.md "
             "Queue A item 6)")
-    if any(hasattr(ldr, "iter_batches") for pair in folds for ldr in pair):
-        raise NotImplementedError(
-            "streaming fold loaders are not ported yet (ROADMAP.md Queue A "
-            "item 15); pass ArrayLoaders")
+    loaders = [ldr for pair in folds for ldr in pair]
+    streaming = [hasattr(ldr, "iter_batches") for ldr in loaders]
+    if any(streaming):
+        from multimodn_tpu_torch.data.streaming import SHUFFLED_SELECTION
+        if not all(streaming):
+            raise ValueError(
+                "mixed fold loaders: every train and val loader must be "
+                "streaming (iter_batches) or every one an ArrayLoader")
+        for ldr in loaders:
+            if getattr(ldr, "n_batches", None) is None:
+                raise NotImplementedError(
+                    "streamed k-fold needs sized fold geometry (n_batches); "
+                    "this loader wraps an unsized iterable dataset")
+            if getattr(ldr, "shuffle", False):
+                raise NotImplementedError(SHUFFLED_SELECTION)
     if patience is not None and patience < 1:
         raise ValueError(f"patience must be >= 1, got {patience}")
     shuffles = [bool(getattr(f[0], "shuffle", False)) for f in folds]

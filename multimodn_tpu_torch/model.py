@@ -10,7 +10,9 @@ Inference: ``predict`` / ``predict_proba`` on per-modality arrays or a
 loader (no NaN skip, quirk #9), ``fused_forward`` through the fused-chain
 CUDA kernel, and ``get_states``. Training: ``train_epoch``, ``test``, ``fit`` and ``fit_best``
 on the unrolled chain, one Python loop over batches per epoch with one host
-transfer per epoch; the optimizer state lives in ``opt_state``. The
+transfer per epoch; the optimizer state lives in ``opt_state``. Every one
+of them takes an ``ArrayLoader`` or a streaming loader (``data.streaming``,
+``data.disk``), whose batches are copied to the device one ahead. The
 ``StaticInitState`` cycle continues across every call, as the reference's
 shared ``itertools.cycle`` does.
 """
@@ -40,6 +42,7 @@ from multimodn_tpu_torch.core.step import (
     make_selection_score,
     run_eval_epoch,
     run_train_epoch,
+    stack_batches,
     to_host,
     update_best,
 )
@@ -152,7 +155,7 @@ class MultiModN:
     # Inference
     # ------------------------------------------------------------------
     def _resolve_order(self, encoder_sequence=None, loader=None):
-        if loader is not None:
+        if loader is not None and not self._streams(loader):
             if loader.has_per_batch_sequences():
                 raise NotImplementedError(
                     "per-batch encoding sequences need the scan or switch "
@@ -165,8 +168,8 @@ class MultiModN:
         else:
             seq = np.asarray(encoder_sequence).reshape(-1)
             order = tuple((int(k), int(e)) for k, e in enumerate(seq))
-        if loader is not None:
-            widths = loader.modality_widths
+        widths = None if loader is None else loader.modality_widths
+        if widths is not None:
             for k, e in order:
                 nf = getattr(self.encoders[e], "n_features", None)
                 if nf is not None and widths[k] != nf:
@@ -184,7 +187,24 @@ class MultiModN:
 
     @staticmethod
     def _is_loader(x) -> bool:
-        return hasattr(x, "stacks") or hasattr(x, "dataset")
+        return hasattr(x, "stacks") or hasattr(x, "dataset") or \
+            MultiModN._streams(x)
+
+    @staticmethod
+    def _streams(loader) -> bool:
+        """A streaming loader (``data.streaming``, ``data.disk``): host
+        batches from ``iter_batches()``, no epoch stacks."""
+        return hasattr(loader, "iter_batches")
+
+    def _batches(self, loader):
+        """``(batch, n_real)`` pairs of one pass over ``loader`` on this
+        model's device: slices of an ``ArrayLoader``'s epoch stacks, or a
+        streaming loader's batches copied one ahead of use."""
+        if self._streams(loader):
+            from multimodn_tpu_torch.data.streaming import device_batches
+            return device_batches(loader, self.device)
+        return stack_batches(loader.stacks(self.device),
+                             loader.batch_counts())
 
     @torch.no_grad()
     def _predict(self, x: Sequence, encoder_sequence):
@@ -204,15 +224,16 @@ class MultiModN:
         dropped: ``(preds (E+1, D, N), outputs list of (E+1, N, C_d))``."""
         fwd = make_forward_fn(self.encoders, self.decoders, self.init_state,
                               self._resolve_order(loader=loader), "none")
-        data, _targets, mask = loader.stacks(self.device)
-        offset, preds, outs = self._cycle_base(), [], []
-        for b, n_real in enumerate(loader.batch_counts()):
-            p, o, _, _ = fwd(self.params, tuple(d[b] for d in data), mask[b],
-                             init_offset=offset)
+        start = offset = self._cycle_base()
+        preds, outs = [], []
+        for (data, _targets, mask), n_real in self._batches(loader):
+            p, o, _, _ = fwd(self.params, data, mask, init_offset=offset)
             offset += n_real
             preds.append(p[:, :, :n_real])
             outs.append([out[:, :n_real] for out in o])
-        self._advance_cycle(loader.n_samples)
+        if not preds:
+            raise ValueError("the loader yielded no batches")
+        self._advance_cycle(offset - start)
         return (torch.cat(preds, dim=2),
                 [torch.cat([o[d] for o in outs], dim=1)
                  for d in range(len(self.decoders))])
@@ -271,14 +292,13 @@ class MultiModN:
         fwd = make_forward_fn(self.encoders, self.decoders, self.init_state,
                               self._resolve_order(loader=loader),
                               self.nan_skip)
-        data, _targets, mask = loader.stacks(self.device)
-        offset, states = self._cycle_base(), []
-        for b, n_real in enumerate(loader.batch_counts()):
-            final = fwd(self.params, tuple(d[b] for d in data), mask[b],
-                        init_offset=offset)[3]
+        start = offset = self._cycle_base()
+        states = []
+        for (data, _targets, mask), n_real in self._batches(loader):
+            final = fwd(self.params, data, mask, init_offset=offset)[3]
             offset += n_real
-            states.append(final[mask[b] > 0])
-        self._advance_cycle(loader.n_samples)
+            states.append(final[mask > 0])
+        self._advance_cycle(offset - start)
         return list(torch.cat(states).cpu().numpy())
 
     # ------------------------------------------------------------------
@@ -315,23 +335,23 @@ class MultiModN:
 
     def _train_pass(self, loader, optimizer, loss_fn, epoch: int):
         """One training epoch; returns its grid sums and batch log on the
-        device."""
+        device and the batches run."""
         loader.reshuffle()
-        self.opt_state, sums, batch_log, _ = run_train_epoch(
+        start = self._cycle_base()
+        self.opt_state, sums, batch_log, offset, n_batches = run_train_epoch(
             loss_fn, optimizer, self.params, self.opt_state,
-            loader.stacks(self.device), loader.batch_counts(),
-            self._generator(epoch), self._cycle_base())
-        self._advance_cycle(loader.n_samples)
-        return sums, batch_log
+            self._batches(loader), self._generator(epoch), start)
+        self._advance_cycle(offset - start)
+        return sums, batch_log, n_batches
 
     def _eval_pass(self, loader, loss_fn):
-        """One evaluation epoch; returns its grid sums and final-row
-        outputs on the device."""
-        sums, outputs, _ = run_eval_epoch(
-            loss_fn, self.params, loader.stacks(self.device),
-            loader.batch_counts(), self._cycle_base())
-        self._advance_cycle(loader.n_samples)
-        return sums, outputs
+        """One evaluation epoch: ``(grid sums, final-row outputs, targets,
+        sample mask)`` on the device and the batches run."""
+        start = self._cycle_base()
+        sums, outputs, targets, mask, offset, n_batches = run_eval_epoch(
+            loss_fn, self.params, self._batches(loader), start)
+        self._advance_cycle(offset - start)
+        return (sums, outputs, targets, mask), n_batches
 
     def _stats(self, host_sums: dict, n_batches: int) -> dict:
         return {k: v.numpy() for k, v in epoch_reduction(
@@ -350,20 +370,29 @@ class MultiModN:
         """One training epoch over ``train_loader``. With ``last_epoch``
         it returns ``test`` on the training loader, as the reference does
         (multimodn.py:251, quirk #16)."""
+        criterion = resolve_criterion(criterion)
+        self._train_epoch(train_loader, optimizer, criterion, history,
+                          log_interval, logger)
+        if last_epoch:
+            return self.test(train_loader, criterion, history=None)
+        return None
+
+    def _train_epoch(self, train_loader, optimizer, criterion, history,
+                     log_interval=None, logger=None) -> dict:
+        """``train_epoch`` without ``last_epoch``; returns the epoch's
+        history metrics."""
         if log_interval and not logger:
             logger = print
-        criterion = resolve_criterion(criterion)
         loss_fn = self._loss_fn(criterion, self._train_order(train_loader))
         self._use_optimizer(optimizer)
-        sums, batch_log = self._train_pass(train_loader, optimizer, loss_fn,
-                                           self._epoch_counter)
+        sums, batch_log, n_batches = self._train_pass(
+            train_loader, optimizer, loss_fn, self._epoch_counter)
         self._epoch_counter += 1
         sums, batch_log = to_host([sums, batch_log])
-        stats = self._stats(sums, train_loader.n_batches)
+        stats = self._stats(sums, n_batches)
         if log_interval:
             # The reference's in-loop log lines (multimodn.py:214-220),
             # written after the epoch from the per-batch values.
-            n_batches = train_loader.n_batches
             for b in range(log_interval - 1, n_batches, log_interval):
                 logger(f"Batch {b + 1}/{n_batches}\n"
                        f"\tLoss: {batch_log[b][0]:.4f}\n"
@@ -372,9 +401,7 @@ class MultiModN:
         if history is not None:
             history.append_epoch("train", stats,
                                  state_change=stats["state_change_loss"])
-        if last_epoch:
-            return self.test(train_loader, criterion, history=None)
-        return None
+        return stats
 
     def test(
         self,
@@ -394,17 +421,18 @@ class MultiModN:
         criterion = resolve_criterion(criterion)
         loss_fn = self._loss_fn(criterion,
                                 self._resolve_order(loader=test_loader))
-        sums, outputs = to_host(list(self._eval_pass(test_loader, loss_fn)))
-        stats = self._stats(sums, test_loader.n_batches)
+        (sums, outputs, targets, mask), n_batches = self._eval_pass(
+            test_loader, loss_fn)
+        sums, outputs = to_host([sums, outputs])
+        stats = self._stats(sums, n_batches)
         if log_results:
             logger(f"{tag.capitalize()} results\n"
                    f"\tAverage loss: {float(np.mean(stats['loss'])):.4f}\n"
                    f"\tAccuracy: {float(np.mean(stats['accuracy'])):.4f}")
         if history is not None:
             history.append_epoch(tag, stats)
-        _data, targets, mask = test_loader.host_stacks()
-        flat_mask = mask.reshape(-1) > 0
-        flat_targets = targets.reshape(-1, targets.shape[-1])[flat_mask]
+        flat_mask = mask.cpu().numpy() > 0
+        flat_targets = targets.cpu().numpy()[flat_mask]
         results = []
         for d, out in enumerate(outputs):
             out = out.numpy()[flat_mask]
@@ -432,18 +460,20 @@ class MultiModN:
         loss_fn = self._loss_fn(criterion, self._train_order(train_loader))
         self._use_optimizer(optimizer)
         for e in range(epochs):
-            sums = [self._train_pass(train_loader, optimizer, loss_fn,
-                                     self._epoch_counter + e)[0]]
+            tsums, _, n_train = self._train_pass(
+                train_loader, optimizer, loss_fn, self._epoch_counter + e)
+            sums = [tsums]
             if val_loader is not None:
-                sums.append(self._eval_pass(val_loader, loss_fn)[0])
+                (vsums, *_), n_val = self._eval_pass(val_loader, loss_fn)
+                sums.append(vsums)
             if history is not None:
                 sums = to_host(sums)
-                stats = self._stats(sums[0], train_loader.n_batches)
+                stats = self._stats(sums[0], n_train)
                 history.append_epoch("train", stats,
                                      state_change=stats["state_change_loss"])
                 if val_loader is not None:
-                    history.append_epoch(val_tag, self._stats(
-                        sums[1], val_loader.n_batches))
+                    history.append_epoch(val_tag, self._stats(sums[1],
+                                                              n_val))
         self._epoch_counter += epochs
         return history
 
@@ -474,9 +504,18 @@ class MultiModN:
                               patience)[0]
 
     def _fit_best(self, train_loader, optimizer, criterion, epochs,
-                  val_loader, history, val_tag, restore_best, patience):
+                  val_loader, history, val_tag, restore_best, patience,
+                  resume: Optional[dict] = None,
+                  after_epoch: Optional[Callable] = None):
         """``fit_best`` plus each executed epoch's training and validation
-        grid sums (host tensors)."""
+        grid sums (host tensors).
+
+        ``resume`` continues an interrupted call (without ``patience``)
+        from its selection state ``{"best": (params, score, epoch),
+        "scores"}`` at epoch ``len(scores)``; the caller has restored the
+        parameters, optimizer state, cycle and the epoch counter the call
+        started from. ``after_epoch(epoch, best, scores)`` runs after each
+        epoch's selection and history rows."""
         if val_loader is None:
             raise ValueError("fit_best requires a val_loader")
         binary = [d.n_classes == 2 for d in self.decoders]
@@ -491,13 +530,17 @@ class MultiModN:
         loss_fn = self._loss_fn(criterion, self._train_order(train_loader))
         self._use_optimizer(optimizer)
         score_fn = make_selection_score(binary)
-        _vdata, vtargets, vmask = val_loader.stacks(self.device)
-        best = (tree_map(torch.clone, self.params), float("-inf"), -1)
-        scores, since, train_sums, val_sums = [], 0, [], []
-        for e in range(epochs):
-            tsums, _ = self._train_pass(train_loader, optimizer, loss_fn,
-                                        self._epoch_counter + e)
-            vsums, outputs = self._eval_pass(val_loader, loss_fn)
+        if resume is None:
+            best = (tree_map(torch.clone, self.params), float("-inf"), -1)
+            scores = []
+        else:
+            best, scores = resume["best"], list(resume["scores"])
+        since, train_sums, val_sums = 0, [], []
+        for e in range(len(scores), epochs):
+            tsums, _, n_train = self._train_pass(
+                train_loader, optimizer, loss_fn, self._epoch_counter + e)
+            (vsums, outputs, vtargets, vmask), n_val = self._eval_pass(
+                val_loader, loss_fn)
             tsums, vsums, score = to_host(
                 [tsums, vsums, score_fn(outputs, vtargets, vmask)])
             train_sums.append(tsums)
@@ -506,11 +549,12 @@ class MultiModN:
             best, improved = update_best(best, self.params, scores[-1], e)
             since = 0 if improved else since + 1
             if history is not None:
-                stats = self._stats(tsums, train_loader.n_batches)
+                stats = self._stats(tsums, n_train)
                 history.append_epoch("train", stats,
                                      state_change=stats["state_change_loss"])
-                history.append_epoch(val_tag, self._stats(
-                    vsums, val_loader.n_batches))
+                history.append_epoch(val_tag, self._stats(vsums, n_val))
+            if after_epoch is not None:
+                after_epoch(e, best, scores)
             if patience is not None and since >= patience:
                 break
         self._epoch_counter += len(scores)

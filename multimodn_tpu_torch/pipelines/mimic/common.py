@@ -10,23 +10,30 @@ rows, one hyper-parameter + metric row per (model, target, fold) appended
 to a results CSV; then the HAIM parallel-fusion baseline on the same folds.
 
 Models run on CUDA unless the caller passes ``device="cpu"``. The folds
-train one after another (``experiments.kfold_fit_best``). Not ported yet,
-and raising ``NotImplementedError``: ``stream_folds`` (ROADMAP.md Queue A
-item 15) and ``resume_dir`` (item 13).
+train one after another, each through ``run_fold_modn``: ``stream_folds``
+streams its batches to the device (``data.streaming``); ``resume_dir``
+trains it through ``checkpoint.fit_best_resumable``
+(``fit_best_streaming(checkpoint_dir=)`` when streamed), so a killed
+protocol run resumes its unfinished folds.
 """
 from __future__ import annotations
 
 import os
+import pickle
 from dataclasses import dataclass, field
 from typing import List
 
 import numpy as np
 
-from multimodn_tpu_torch import Adam, MultiModN
+from multimodn_tpu_torch import Adam, MultiModN, MultiModNHistory
 from multimodn_tpu_torch.baselines.haim import HAIM, HAIMDecoder
-from multimodn_tpu_torch.checkpoint import save_checkpoint
+from multimodn_tpu_torch.checkpoint import fit_best_resumable, save_checkpoint
 from multimodn_tpu_torch.core.metrics import performance_metrics
 from multimodn_tpu_torch.data import ArrayLoader, MIMICDataset, Subset
+from multimodn_tpu_torch.data.streaming import (
+    StreamingLoader,
+    fit_best_streaming,
+)
 from multimodn_tpu_torch.data.kfold import StratifiedKFold, train_test_split
 from multimodn_tpu_torch.data.table import format_value, write_rows
 from multimodn_tpu_torch.decoders import MLPDecoder
@@ -60,29 +67,22 @@ class MimicConfig:
     # Synthetic data size when no real embeddings CSV is configured.
     synthetic_patients: int = 120
     # Kept so the JAX package's configs load: its folds train in one vmapped
-    # program unless this is False; here every fold runs through
-    # kfold_fit_best, one after another, and the field selects nothing.
+    # program unless this is False or resume_dir is set; here every fold
+    # runs through run_fold_modn, one after another, and the field selects
+    # nothing.
     vmap_folds: bool = True
+    # Stream each fold's batches to the device (StreamingLoader) instead of
+    # copying its epoch stacks at once; the same results.
     stream_folds: bool = False
     encoder_type: str = "mimic_mlp"
+    # Train each fold through fit_best_resumable (fit_best_streaming with
+    # checkpoint_dir when streamed) with resume checkpoints under this
+    # directory; a rerun resumes unfinished folds.
     resume_dir: str = None
     transformer_embed: int = 128
     transformer_heads: int = 4
     transformer_layers: int = 2
     transformer_chunk: int = 64
-
-
-def check_config(cfg: MimicConfig):
-    """Raise ``NotImplementedError`` for the options not ported yet."""
-    unported = [
-        (cfg.stream_folds, "stream_folds=True (streaming fold loaders, "
-                           "ROADMAP.md Queue A item 15)"),
-        (cfg.resume_dir, "resume_dir (resumable fits, ROADMAP.md Queue A "
-                         "item 13)"),
-    ]
-    for on, what in unported:
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet")
 
 
 def storage_root() -> str:
@@ -162,7 +162,6 @@ def build_modn(cfg: MimicConfig, partitions: List[int], targets: List[str],
     """The MIMIC MultiModN: one ``MIMICMLPEncoder`` (or, with
     ``encoder_type='transformer'``, one ``TransformerEncoder``) per
     partition, one ``MLPDecoder`` per target."""
-    check_config(cfg)
     if cfg.encoder_type == "transformer":
         encoders = [TransformerEncoder(cfg.state_size, p,
                                        embed_dim=cfg.transformer_embed,
@@ -186,39 +185,85 @@ def build_modn(cfg: MimicConfig, partitions: List[int], targets: List[str],
                      device=device)
 
 
-def _save_fold_checkpoint(artifacts_dir, fold_tag, model, info):
-    """The fold's best checkpoint, ``modn_best_<fold_tag>.pkl``."""
+def _save_fold_artifacts(artifacts_dir, fold_tag, model, info, history):
+    """The fold's best checkpoint, ``modn_best_<fold_tag>.pkl``, and its
+    pickled history, ``modn_history_<fold_tag>.pkl``, for every fold path."""
+    if not artifacts_dir:
+        return
     os.makedirs(artifacts_dir, exist_ok=True)
     save_checkpoint(os.path.join(artifacts_dir, f"modn_best_{fold_tag}.pkl"),
                     model, info["best_epoch"], info["best_score"])
+    with open(os.path.join(artifacts_dir,
+                           f"modn_history_{fold_tag}.pkl"), "wb") as f:
+        pickle.dump(history, f)
+
+
+def _resume_dir(cfg: MimicConfig, targets, fold_tag: str) -> str:
+    """The fold's checkpoint directory: ``<resume_dir>/<run key>/<fold_tag>``,
+    the run key naming the targets and missingness, so two experiments
+    never share one (payloads of one shape would load silently)."""
+    if not fold_tag:
+        raise ValueError(
+            "resume_dir requires a unique fold_tag per (target, fold) run: "
+            "checkpoint dirs must not collide across runs or a later run "
+            "silently adopts an earlier run's completed checkpoint and "
+            "trains zero epochs.")
+    run_key = "_".join(t.replace(" ", "-") for t in targets)
+    if cfg.miss_perc:
+        run_key += f"_miss{cfg.miss_perc:g}"
+    return os.path.join(cfg.resume_dir, run_key, fold_tag)
+
+
+def run_fold_modn(cfg: MimicConfig, dataset_modn, partitions, targets,
+                  train_ind, val_ind, test_ind, seed, artifacts_dir=None,
+                  fold_tag="", device=None):
+    """One fold: MultiModN with best-epoch selection, then tested. Under
+    ``cfg.stream_folds`` the fold's batches stream (``fit_best_streaming``,
+    resumable through its own checkpoints under ``<fold dir>_stream``);
+    otherwise ``cfg.resume_dir`` trains through ``fit_best_resumable``.
+    Returns ``(model, history, info, test_metrics)``."""
+    ckpt_dir = _resume_dir(cfg, targets, fold_tag) if cfg.resume_dir \
+        else None
+    loader_cls = StreamingLoader if cfg.stream_folds else ArrayLoader
+    train_loader, val_loader, test_loader = (
+        loader_cls(Subset(dataset_modn, ind), cfg.batch_size)
+        for ind in (train_ind, val_ind, test_ind))
+    model = build_modn(cfg, partitions, targets, seed, device)
+    history = MultiModNHistory(targets)
+    optimizer, every = Adam(cfg.learning_rate), max(1, cfg.epochs // 10)
+    if cfg.stream_folds:
+        info = fit_best_streaming(
+            model, train_loader, optimizer, "cross_entropy",
+            epochs=cfg.epochs, val_loader=val_loader, history=history,
+            checkpoint_dir=ckpt_dir and ckpt_dir + "_stream",
+            checkpoint_every=every)
+    elif ckpt_dir:
+        info = fit_best_resumable(
+            model, train_loader, optimizer, "cross_entropy",
+            epochs=cfg.epochs, val_loader=val_loader, history=history,
+            checkpoint_dir=ckpt_dir, chunk_epochs=every)
+    else:
+        info = model.fit_best(train_loader, optimizer, "cross_entropy",
+                              epochs=cfg.epochs, val_loader=val_loader,
+                              history=history, restore_best=True)
+    _save_fold_artifacts(artifacts_dir, fold_tag, model, info, history)
+    return model, history, info, model.test(test_loader, "cross_entropy")
 
 
 def run_all_folds_modn(cfg: MimicConfig, dataset_modn, partitions, targets,
                        fold_indices, base_seed: int, device=None,
                        artifacts_dir=None):
-    """Every fold of one target through ``kfold_fit_best``, seeds
-    ``base_seed + i``; returns per-fold ``(model, info, test_metrics)``.
-    With ``artifacts_dir``, each fold's best model is saved there as
-    ``modn_best_fold<i>_seed<seed>.pkl``."""
-    from multimodn_tpu_torch.experiments import kfold_fit_best
-
-    check_config(cfg)
-    folds = [(ArrayLoader(Subset(dataset_modn, tr), cfg.batch_size),
-              ArrayLoader(Subset(dataset_modn, va), cfg.batch_size))
-             for tr, va, _te in fold_indices]
-    seeds = [base_seed + i for i in range(len(fold_indices))]
-    results = kfold_fit_best(
-        lambda s: build_modn(cfg, partitions, targets, s, device),
-        folds, Adam(cfg.learning_rate), "cross_entropy",
-        epochs=cfg.epochs, seeds=seeds)
+    """Every fold of one target through ``run_fold_modn``, one after
+    another, with seeds ``base_seed + i`` and fold tags
+    ``fold<i>_seed<seed>`` (the names of the saved artifacts and resume
+    directories); returns per-fold ``(model, info, test_metrics)``."""
     out = []
-    for i, (res, (_tr, _va, te)) in enumerate(zip(results, fold_indices)):
-        if artifacts_dir:
-            _save_fold_checkpoint(artifacts_dir, f"fold{i}_seed{seeds[i]}",
-                                  res["model"], res)
-        test_loader = ArrayLoader(Subset(dataset_modn, te), cfg.batch_size)
-        test_metrics = res["model"].test(test_loader, "cross_entropy")
-        out.append((res["model"], res, test_metrics))
+    for i, (tr, va, te) in enumerate(fold_indices):
+        seed = base_seed + i
+        model, _history, info, test_metrics = run_fold_modn(
+            cfg, dataset_modn, partitions, targets, tr, va, te, seed,
+            artifacts_dir, f"fold{i}_seed{seed}", device)
+        out.append((model, info, test_metrics))
     return out
 
 
@@ -232,7 +277,6 @@ def run_fold_haim(cfg: MimicConfig, dataset_haim, train_ind, val_ind,
     ``mimic_single_task_pipeline.py:200-204``). ``skip_last_val``: the MNAR
     pipeline's HAIM never scores its last epoch on val (``HAIM.fit_best``).
     """
-    check_config(cfg)
     train_loader = ArrayLoader(Subset(dataset_haim, train_ind), cfg.batch_size)
     val_loader = ArrayLoader(Subset(dataset_haim, val_ind), cfg.batch_size)
     test_loader = ArrayLoader(Subset(dataset_haim, test_ind), cfg.batch_size)

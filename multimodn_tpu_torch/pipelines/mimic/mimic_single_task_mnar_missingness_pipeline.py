@@ -16,10 +16,8 @@ runs on the GPU; ``main(argv, cfg, device="cpu")`` runs on the CPU.
 import argparse
 import os
 
-from multimodn_tpu_torch import Adam
 from multimodn_tpu_torch.core.metrics import performance_metrics
 from multimodn_tpu_torch.data import ArrayLoader, MIMICDataset, Subset
-from multimodn_tpu_torch.experiments import kfold_fit_best
 from multimodn_tpu_torch.pipelines import utils
 from multimodn_tpu_torch.pipelines.mimic import common
 from multimodn_tpu_torch.pipelines.mimic.common import (
@@ -63,7 +61,6 @@ def main(argv=None, cfg: MimicConfig = None, device=None):
     if args.epoch:
         cfg.epochs = args.epoch
     cfg.miss_perc = args.miss_perc
-    common.check_config(cfg)
     put_none = cfg.miss_perc > 0
     class_label = 1
     vd_features = [f"vd_{k}" for k in range(1024)]
@@ -105,20 +102,14 @@ def main(argv=None, cfg: MimicConfig = None, device=None):
                 synthetic_kwargs=synth).partition_dataset()
             fold_datasets.append((dataset_modn, dataset_haim))
 
-        folds = [(ArrayLoader(Subset(ds_m, tr), cfg.batch_size),
-                  ArrayLoader(Subset(ds_m, va), cfg.batch_size))
-                 for (ds_m, _dh), (tr, va, _te)
-                 in zip(fold_datasets, fold_indices)]
-        fold_runs = kfold_fit_best(
-            lambda s: common.build_modn(cfg, partitions, [target], s, device),
-            folds, Adam(cfg.learning_rate), "cross_entropy",
-            epochs=cfg.epochs,
-            seeds=[args.seed + i for i in range(len(folds))])
-
         seed = args.seed
         for fold, (tr, va, te) in enumerate(fold_indices):
             dataset_modn, dataset_haim = fold_datasets[fold]
-            model = fold_runs[fold]["model"]
+            # The fold's own degraded data (streamed under stream_folds,
+            # resumable under resume_dir).
+            model = common.run_fold_modn(
+                cfg, dataset_modn, partitions, [target], tr, va, te, seed,
+                fold_tag=f"fold{fold}_seed{seed}", device=device)[0]
 
             # Test twice: flipped-class degraded (both=True) and clean
             # (both=False), reference :218-242.

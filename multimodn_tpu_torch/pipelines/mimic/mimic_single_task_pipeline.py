@@ -28,7 +28,6 @@ def main(argv=None, cfg: MimicConfig = None, device=None):
     cfg = cfg or MimicConfig()
     if args.epoch:
         cfg.epochs = args.epoch
-    common.check_config(cfg)
 
     results_dir = os.path.join(storage_root(), "nips", "results")
     os.makedirs(results_dir, exist_ok=True)

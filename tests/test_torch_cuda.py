@@ -1,7 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions, on a GPU: the
 fused chain (K1, at the MIMIC, small and Titanic shapes) and the fused
-8-bit Adam update (K2); and the card against the CPU for training, the
-recurrent encoders, ``SGD`` and ``AdamW``, and two Titanic pipelines.
+8-bit Adam update (K2); the card against the CPU for training, the
+recurrent encoders, ``SGD`` and ``AdamW``, and two Titanic pipelines; and
+streamed batches (pinned, copied one ahead) and a killed and resumed
+``Adam8bit`` fit on the card, bit-equal to their ArrayLoader and
+uninterrupted twins.
 
 Every test here carries the ``cuda`` marker and skips without a GPU. The
 file imports neither JAX nor the JAX package, so it runs on a GPU machine
@@ -579,3 +582,99 @@ def test_transformer_training_on_cuda_matches_cpu(cuda):
     assert (fc.FUSED_CHAIN.launches, fa.FUSED_ADAM.launches) == launches
     with pytest.raises(TypeError, match="MLP-family"):
         gpu.fused_forward(x)
+
+
+def _mimic_stream_case(device, dropout=0.2):
+    model = MultiModN(
+        50, [tenc.MIMICMLPEncoder(50, w, (32, 32), dropout)
+             for w in (10, 1024, 768, 99)],
+        [tdec.MLPDecoder(50, (32, 32), 2) for _ in range(2)], 1.0, 0.0,
+        seed=6, device=device)
+    rng = np.random.default_rng(2)
+    X = rng.normal(size=(72, 1901)).astype(np.float32)
+    X[rng.random(72) < 0.3, 10:1034] = np.nan
+    y = (X[:, :2] > 0).astype(np.int64)
+    return model, PartitionDataset(X, y, [10, 1024, 768, 99])
+
+
+def _same_bits(a, b):
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        if x is not None:
+            bits = {1: torch.uint8, 4: torch.int32}[x.element_size()]
+            assert torch.equal(x.view(bits), y.view(bits))
+
+
+@pytest.mark.cuda
+def test_device_batches_copy_pinned_one_ahead_on_cuda(cuda):
+    """Each streamed batch arrives on the card equal to its host batch, its
+    copy made from a pinned buffer on a side stream that the consumer
+    stream waits on."""
+    from multimodn_tpu_torch.data.streaming import (StreamingLoader,
+                                                    device_batches)
+    _, ds = _mimic_stream_case(cuda)
+    host = list(StreamingLoader(ds, 16).iter_batches())
+    got = list(device_batches(StreamingLoader(ds, 16), cuda))
+    assert [n for _, n in got] == [16, 16, 16, 16, 8]
+    for ((data, targets, mask), _), (hd, ht, hm) in zip(got, host):
+        assert data[1].is_cuda and targets.dtype == torch.int64
+        for d, h in zip(data, hd):
+            np.testing.assert_array_equal(d.cpu().numpy(), h)
+        np.testing.assert_array_equal(mask.cpu().numpy(), hm)
+
+
+@pytest.mark.cuda
+def test_streamed_fit_best_on_cuda_equals_array_loader(cuda):
+    """fit_best over StreamingLoaders on the card equals it over
+    ArrayLoaders bit for bit (Adam8bit through K2, dropout on), one K2
+    launch per step."""
+    from multimodn_tpu_torch.data.streaming import (StreamingLoader,
+                                                    fit_best_streaming)
+    a, ds = _mimic_stream_case(cuda)
+    b, _ = _mimic_stream_case(cuda)
+    want = a.fit_best(ArrayLoader(ds, 16), Adam8bit(LR), epochs=3,
+                      val_loader=ArrayLoader(ds, 16))
+    before = fa.FUSED_ADAM.launches
+    got = fit_best_streaming(b, StreamingLoader(ds, 16), Adam8bit(LR),
+                             epochs=3, val_loader=StreamingLoader(ds, 16))
+    torch.cuda.synchronize()
+    assert fa.FUSED_ADAM.launches - before == 3 * 5
+    assert got["best_epoch"] == want["best_epoch"]
+    np.testing.assert_array_equal(got["scores"], want["scores"])
+    _same_bits(a.params, b.params)
+    _same_bits(a.opt_state, b.opt_state)
+
+
+@pytest.mark.cuda
+def test_fit_best_resumable_on_cuda_kill_and_resume(cuda, tmp_path):
+    """Killed after its first chunk and resumed by a fresh model, the
+    resumable fit on the card equals one fit_best: parameters, fp8 codes
+    and scales bit for bit, K2 launched once per step taken."""
+    from multimodn_tpu_torch import checkpoint
+
+    class Interrupt(Exception):
+        pass
+
+    def bomb(done, total):
+        if done == 1:
+            raise Interrupt
+
+    one, ds = _mimic_stream_case(cuda)
+    want = one.fit_best(ArrayLoader(ds, 16), Adam8bit(LR), epochs=3,
+                        val_loader=ArrayLoader(ds, 16), restore_best=False)
+    before = fa.FUSED_ADAM.launches
+    with pytest.raises(Interrupt):
+        checkpoint.fit_best_resumable(
+            _mimic_stream_case(cuda)[0], ArrayLoader(ds, 16), Adam8bit(LR),
+            epochs=3, checkpoint_dir=str(tmp_path), val_loader=ArrayLoader(
+                ds, 16), chunk_epochs=1, on_chunk=bomb)
+    revived = _mimic_stream_case(cuda)[0]
+    got = checkpoint.fit_best_resumable(
+        revived, ArrayLoader(ds, 16), Adam8bit(LR), epochs=3,
+        checkpoint_dir=str(tmp_path), val_loader=ArrayLoader(ds, 16),
+        chunk_epochs=1, restore_best=False)
+    torch.cuda.synchronize()
+    assert fa.FUSED_ADAM.launches - before == 3 * 5
+    assert got["best_epoch"] == want["best_epoch"]
+    np.testing.assert_array_equal(got["scores"], want["scores"])
+    _same_bits(one.params, revived.params)
+    _same_bits(one.opt_state, revived.opt_state)

@@ -163,6 +163,66 @@ def test_mnar_protocol_and_transformer_run_without_jax_pandas_or_sklearn(
     assert proc.stdout.strip().endswith("ok")
 
 
+def test_streamed_resumable_pipeline_runs_without_jax_pandas_or_sklearn(
+        tmp_path):
+    """The single-task pipeline with stream_folds and resume_dir (run twice:
+    the second run resumes finished folds), fit_best_resumable with
+    Adam8bit, and a CSV streamed through the native bridge, in a process
+    where importing jax, the JAX package, pandas or scikit-learn fails."""
+    script = textwrap.dedent("""
+        import os, sys
+        for name in ("jax", "multimodn_tpu", "pandas", "sklearn"):
+            sys.modules[name] = None       # any import of them now fails
+        import numpy as np
+        import multimodn_tpu_torch as tmm
+        from multimodn_tpu_torch import checkpoint, decoders, encoders
+        from multimodn_tpu_torch.data import (ArrayLoader, CSVStreamingLoader,
+                                              PartitionDataset, mimic,
+                                              train_epoch_streaming)
+        work = sys.argv[1]
+        mimic.DEFAULT_CACHE_ROOT = os.path.join(work, "cache")
+        from multimodn_tpu_torch.pipelines.mimic import (
+            common, mimic_single_task_pipeline as single)
+        rows = []
+        for run in ("first", "again"):
+            os.environ["MULTIMODN_STORAGE"] = os.path.join(work, run)
+            cfg = common.MimicConfig(sources=["de", "vd", "ts_ce"], nfold=2,
+                                     synthetic_patients=24, stream_folds=True,
+                                     resume_dir=os.path.join(work, "ck"))
+            rows.append(single.main(["-e", "2"], cfg, device="cpu"))
+        assert rows[0] == rows[1] and len(rows[0]) == 8, rows
+        X = np.random.default_rng(0).normal(size=(30, 5)).astype(np.float32)
+        y = (X[:, 0] > 0).astype(np.int64)
+        ds = PartitionDataset(X, y, [2, 3])
+        model = tmm.MultiModN(4, [encoders.MIMICMLPEncoder(4, w, (5,))
+                                  for w in (2, 3)],
+                              [decoders.MLPDecoder(4, (5,), 2)], 1.0, 0.0,
+                              device="cpu")
+        checkpoint.fit_best_resumable(
+            model, ArrayLoader(ds, 8), tmm.Adam8bit(0.01), epochs=2,
+            checkpoint_dir=os.path.join(work, "fit"),
+            val_loader=ArrayLoader(ds, 8), chunk_epochs=1)
+        path = os.path.join(work, "m.csv")
+        with open(path, "w") as f:
+            f.write("a,b,c,d,e,t\\n")
+            for row, t in zip(X, y):
+                f.write(",".join(map(repr, map(float, row))) + f",{t}\\n")
+        train_epoch_streaming(model, CSVStreamingLoader(path, [2, 3], 1, 8),
+                              tmm.Adam8bit(0.01))
+        leaked = sorted(k for k in sys.modules if k.split(".")[0] in
+                        ("jax", "multimodn_tpu", "pandas", "sklearn")
+                        and sys.modules[k] is not None)
+        assert not leaked, leaked
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp_path)],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300, env={**os.environ,
+                                            "MULTIMODN_MIMIC_EMBED_PATH": ""})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
 @pytest.fixture()
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -159,13 +159,6 @@ def test_kfold_unported_arguments_raise():
         tkfold(tfactory, tfolds, opt, mesh=object())
     with pytest.raises(NotImplementedError, match="item 6"):
         tkfold(tfactory, tfolds, opt, on_epoch=print)
-
-    class Streaming:
-        def iter_batches(self):
-            return iter(())
-
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tkfold(tfactory, [(Streaming(), Streaming())], opt)
     with pytest.raises(ValueError, match="patience"):
         tkfold(tfactory, tfolds, opt, patience=0)
 
@@ -225,16 +218,18 @@ def test_parse_args_matches_jax():
 
 
 @pytest.mark.parametrize("option, match", [
-    ({"stream_folds": True}, "item 15"),
-    ({"resume_dir": "/nonexistent"}, "item 13"),
+    ({"stream_folds": True}, "fold_tag"),
+    ({"resume_dir": "/nonexistent"}, "fold_tag"),
 ])
 def test_unported_pipeline_options_raise(option, match):
-    from multimodn_tpu_torch.pipelines.mimic import mimic_multi_task_pipeline
-    cfg = tcommon.MimicConfig(**option)
-    with pytest.raises(NotImplementedError, match=match):
-        mimic_multi_task_pipeline.main(["-e", "1"], cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        tcommon.build_modn(cfg, [3, 4], ["t"], 0, device="cpu")
+    """stream_folds and resume_dir are ported: models build under them, and
+    the one refusal left is the JAX package's, a resumable fold without a
+    fold_tag (its checkpoints could collide with another run's)."""
+    cfg = tcommon.MimicConfig(**{"resume_dir": "/nonexistent", **option})
+    assert tcommon.build_modn(cfg, [3, 4], ["t"], 0, device="cpu")
+    with pytest.raises(ValueError, match=match):
+        tcommon.run_fold_modn(cfg, None, [3, 4], ["t"], [], [], [], 0,
+                              device="cpu")
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])
