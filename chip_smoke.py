@@ -5,10 +5,12 @@
     python3 chip_smoke.py --protocol-only --patients 6485 --epochs 1
     python3 chip_smoke.py --protocol-only --stream-folds --patients 6485 --epochs 2
     python3 chip_smoke.py --mnar-only --epochs 10
+    python3 chip_smoke.py --orders-only
 
 The first form is the smoke run; the second times phase 8 alone at another
 data size and depth, the third with every fold's batches streamed; the
-fourth runs the MNAR protocol grid alone. Phases, each fatal on failure:
+fourth runs the MNAR protocol grid alone, the fifth phase 13 alone.
+Phases, each fatal on failure:
 
 1. the card's name and power limit, torch and CUDA versions; TF32 off;
 2. build the fused-chain kernel from ``multimodn_tpu_torch/csrc``;
@@ -41,7 +43,9 @@ fourth runs the MNAR protocol grid alone. Phases, each fatal on failure:
    loss below the first's, and the fused Adam kernel launched as often per
    step as its leaf table says (once at MIMIC width); the same run with
    ``Adam`` is timed beside it,
-   and ``torch.profiler`` splits a few steps into device and host time;
+   and ``torch.profiler`` splits a few steps into device and host time,
+   read from the profiler's device events and, on the same trace, through
+   ``key_averages()``;
 7. the card against the CPU: the same weights take 3 ``Adam8bit`` steps on
    the same batches on both devices and must agree;
 8. the MIMIC protocol: the port's three MIMIC pipelines (single-task, 2
@@ -116,11 +120,28 @@ fourth runs the MNAR protocol grid alone. Phases, each fatal on failure:
    streamed batches of 16 and 1024, the share of the streamed copies'
    device time that overlaps a kernel (``torch.profiler``), and a resume
    payload's write time;
-13. the earlier designs' times from PERF.md on a line of their own, the
-   ``mnar``, ``transformer`` and ``resume`` lines, one ``{"kernels":
-   [...]}`` line of this run's numbers (K1's with ``titanic``, ``mnar`` and
-   ``resumed`` blocks, K2's with a ``resume`` block), the script's wall
-   time, the card's line, and last the ``{"ok": true, ...}`` line.
+13. encoding orders: the MIMIC model at full width with ``shuffle_mode``
+   (the switch chain, an order per training batch) trained by ``fit_best``
+   with ``Adam8bit`` for 2 epochs on phase 6's cohort (K2 once per step),
+   3 steps on the card against the CPU on the same permutations, and the
+   model exported, loaded and serving 8 requests through K1 against the
+   plain chain; then the featurewise chain (1901 ``MLPFeatureEncoder(50,
+   32)``, one ``MLPDecoder``; 256 seeded rows, 10% NaN, batches of 64)
+   trained 2 epochs with ``Adam8bit``, once with ``shuffle_mode`` (the scan
+   chain) and once on batches that each carry their own permutation of the
+   features: per run one step on the card against the CPU, steps/s, K2
+   launches per step (``launches_per_update`` of ~7,600 leaves), a
+   ``torch.profiler`` step (kernels, device ms, busy share, K2's own ms)
+   and ``predict_proba`` against the CPU; and K2 on those leaves held bit
+   for bit against its plain version (every one of its launches), then
+   timed beside it and its bytes bound;
+14. the earlier designs' times from PERF.md on a line of their own, the
+   ``mnar``, ``transformer``, ``resume`` and ``orders`` lines, one
+   ``{"kernels": [...]}`` line of this run's numbers (launches summed over
+   every path that ran the kernel, by phase in ``launches_by_phase``; K1's
+   with ``titanic``, ``mnar``, ``resumed`` and ``orders`` blocks, K2's with
+   ``resume`` and ``orders`` blocks), the script's wall time, the card's
+   line, and last the ``{"ok": true, ...}`` line.
 
 ``--mnar-only`` runs phase 1 and the MNAR protocol grid alone at the
 published cohort scale (300 patients, 5 folds) for ``batch``, ``sample``
@@ -156,7 +177,8 @@ from multimodn_tpu_torch.core.tree import tree_leaves
 from multimodn_tpu_torch.data import ArrayLoader, PartitionDataset, Subset
 from multimodn_tpu_torch.decoders import ClassDecoder, LogisticDecoder, \
     MLPDecoder
-from multimodn_tpu_torch.encoders import MIMICMLPEncoder, MLPEncoder
+from multimodn_tpu_torch.encoders import MIMICMLPEncoder, MLPEncoder, \
+    MLPFeatureEncoder
 from multimodn_tpu_torch.ops import fused_adam as fa
 from multimodn_tpu_torch.ops.build import library_path
 from multimodn_tpu_torch.ops.fused_adam import FUSED_ADAM
@@ -227,13 +249,13 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def mimic_model(device, seed=0, dropout=0.2):
+def mimic_model(device, seed=0, dropout=0.2, **kw):
     encoders = [MIMICMLPEncoder(MIMIC_STATE, w, (MIMIC_HIDDEN,) * 2,
                                 dropout=dropout) for w in MIMIC_WIDTHS]
     decoders = [MLPDecoder(MIMIC_STATE, (MIMIC_HIDDEN,) * 2, 2)
                 for _ in range(MIMIC_TARGETS)]
     return MultiModN(MIMIC_STATE, encoders, decoders, 1.0, 0.0, seed=seed,
-                     device=device)
+                     device=device, **kw)
 
 
 def small_model(device):
@@ -589,16 +611,19 @@ def check_adam_leaves(leaves, fmt):
                          fmt=fmt)
     torch.cuda.synchronize()
     launches = FUSED_ADAM.launches - before
-    mismatches, err = 0, 0.0
+    # Summed on the card and read once: thousands of leaves, no sync each.
+    bad, errs = [], []
     for leaf, w in zip(got, want):
         for a, b in zip([leaf[0]] + leaf[2:6], w):
             differ = _bits(a) != _bits(b)
             if a.element_size() != 1:
                 differ &= ~(a.isnan() & b.isnan())
-            mismatches += int(differ.sum())
+            bad.append(differ.sum())
         if leaf[0].numel():
-            err = max(err, float(torch.nan_to_num(
-                (leaf[0] - w[0]).abs(), nan=float("inf")).max()))
+            errs.append(torch.nan_to_num((leaf[0] - w[0]).abs(),
+                                         nan=float("inf")).max())
+    mismatches = int(torch.stack(bad).sum()) if bad else 0
+    err = float(torch.stack(errs).max()) if errs else 0.0
     return mismatches, err, launches
 
 
@@ -789,13 +814,20 @@ def check_training(device):
     return runs
 
 
-def profile_steps(model, loader, optimizer, label):
+def profile_steps(model, loader, optimizer, label, kernel=None,
+                  warm_up=True, key_averages=False):
     """Where a training step's time goes: ``torch.profiler`` over one
-    ``train_epoch`` of ``loader`` after a warm-up epoch. The device time is
-    the sum of the kernels' own times; the wall time is the host clock
-    around the epoch, synchronised, with the profiler's own cost in it."""
+    ``train_epoch`` of ``loader``, after a warm-up epoch unless the model is
+    warm already. The device time is the sum of the kernels' own times;
+    the wall time is the host clock around the epoch, synchronised, with
+    the profiler's own cost in it. ``kernel``: a name fragment whose
+    kernels' device ms and launches per step are reported on their own.
+    ``key_averages``: also read the same trace through ``key_averages()``,
+    the profiler's own per-name table, under ``"key_averages"``, so that
+    readings taken that way compare with this one."""
     from torch.profiler import ProfilerActivity, profile
-    model.train_epoch(loader, optimizer, "cross_entropy")
+    if warm_up:
+        model.train_epoch(loader, optimizer, "cross_entropy")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -804,18 +836,35 @@ def profile_steps(model, loader, optimizer, label):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     steps = loader.n_batches
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    # The device events straight from the profiler's results: key_averages()
+    # would first build every host event, minutes of host time for the
+    # ~10^5 kernels of a featurewise step.
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    device_ms = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     r = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
          "device_ms_per_step": device_ms / steps if device_ms else None,
          "device_busy_share": device_ms / wall_ms if device_ms else None,
-         "kernels_per_step": sum(e.count for e in kernels) / steps,
-         "top_kernels": [{"name": e.key[:80],
-                          "ms_per_step": e.self_device_time_total / 1e3
-                          / steps, "per_step": e.count / steps}
-                         for e in top]}
+         "kernels_per_step": sum(n for _, n in by_name.values()) / steps,
+         "top_kernels": [{"name": name[:80], "ms_per_step": ms / steps,
+                          "per_step": n / steps}
+                         for name, (ms, n) in top]}
+    if kernel is not None:
+        own = [v for name, v in by_name.items() if kernel in name]
+        r[kernel] = {"ms_per_step": sum(ms for ms, _ in own) / steps,
+                     "per_step": sum(n for _, n in own) / steps}
+    if key_averages:
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        avg_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        r["key_averages"] = {
+            "device_ms_per_step": avg_ms / steps,
+            "device_busy_share": avg_ms / wall_ms,
+            "kernels_per_step": sum(e.count for e in kernels) / steps}
     log(f"  profile of {steps} {label} steps: {json.dumps(r)}"
         + ("" if device_ms else " (the profiler saw no device time: not "
            "measured)"))
@@ -829,7 +878,7 @@ def profile_training(device, steps=8):
                                 train_set.indices[:steps * TRAIN_BATCH]),
                          TRAIN_BATCH)
     return profile_steps(mimic_model(device), loader, Adam8bit(ADAM_LR),
-                         "Adam8bit")
+                         "Adam8bit", key_averages=True)
 
 
 def check_device_vs_cpu(device):
@@ -2032,6 +2081,257 @@ def run_resume(device):
             "served": served, "payload_write": write, "rates": rates}
 
 
+# Phase 13: encoding orders. (a) The MIMIC model at full width with
+# shuffle_mode: the auto plan takes the switch chain and draws an order per
+# training batch. (b) The featurewise chain of RESULTS.md:213-220, one
+# MLPFeatureEncoder(50, 32) per MIMIC feature (1901) and one MLPDecoder,
+# trained with shuffle_mode (the scan chain) and on batches that each carry
+# their own permutation of the features (per-batch sequences).
+ORDERS_EPOCHS = 2
+FEATUREWISE_E, FEATUREWISE_HIDDEN = sum(MIMIC_WIDTHS), 32
+FEATUREWISE_SAMPLES, FEATUREWISE_BATCH = 256, 64
+FEATUREWISE_EPOCHS, FEATUREWISE_MISSING = 2, 0.1
+# One Adam8bit step from the same weights on the card and the CPU, an end
+# to end check of the chain and its gradients (K2 itself is held bit for
+# bit on these leaves by time_adam_featurewise): the first step moves a
+# parameter by ~lr * sign(g), so a near-zero gradient that the two
+# summation orders round to opposite signs differs by 2 lr, plus the fp8
+# rounding of the moments (<10%).
+STEP_TOL = 3 * ADAM_LR
+
+
+def orders_mimic(device, work):
+    """Phase 13 (a): ``fit_best`` with ``Adam8bit`` and ``shuffle_mode`` on
+    phase 6's cohort (K2 once per step), 3 steps on the card against the
+    CPU (both devices draw the same permutations), then the model exported,
+    loaded and served through K1 against the plain chain."""
+    ds, train_set, val_set = mimic_training_loaders()
+    model = mimic_model(device, shuffle_mode=True)
+    if model._chain_plan() != ("switch", True):
+        raise AssertionError(f"MIMIC shuffle plan {model._chain_plan()}")
+    train_loader = ArrayLoader(train_set, TRAIN_BATCH, shuffle=True, seed=0)
+    history = MultiModNHistory([f"t{d}" for d in range(MIMIC_TARGETS)])
+    torch.cuda.synchronize()
+    FUSED_CHAIN.launches = FUSED_ADAM.launches = 0
+    t0 = time.perf_counter()
+    best = model.fit_best(train_loader, Adam8bit(ADAM_LR), "cross_entropy",
+                          epochs=ORDERS_EPOCHS,
+                          val_loader=ArrayLoader(val_set, TRAIN_BATCH),
+                          history=history)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    k2, k1 = FUSED_ADAM.launches, FUSED_CHAIN.launches
+    steps = best["epochs_ran"] * train_loader.n_batches
+    per_step = fa.launches_per_update(
+        [tuple(t.shape) for t in tree_leaves(model.params)])
+    losses = [float(np.mean(g)) for g in history.loss["train"]]
+    if k2 != per_step * steps or k1:
+        raise AssertionError(f"shuffled MIMIC fit_best launched K2 {k2} "
+                             f"times for {steps} steps of {per_step}, K1 "
+                             f"{k1} times")
+    if not np.isfinite(losses + list(best["scores"])).all():
+        raise AssertionError(f"shuffled MIMIC: losses {losses}")
+    gpu = mimic_model(device, seed=1, dropout=0.0, shuffle_mode=True)
+    cpu = mimic_model("cpu", seed=1, dropout=0.0, shuffle_mode=True)
+    cpu.load_state_dict(gpu.state_dict())
+    subset = Subset(ds, train_set.indices[:3 * TRAIN_BATCH])
+    for m in (gpu, cpu):
+        m.train_epoch(ArrayLoader(subset, TRAIN_BATCH), Adam8bit(ADAM_LR),
+                      "cross_entropy")
+    err = param_err(gpu, cpu)
+    if not err <= DEVICE_TOL:
+        raise AssertionError(f"shuffled MIMIC: card and CPU differ by {err}")
+    loaded = export_and_load(model, os.path.join(work, "mimic_shuffle"),
+                             device, "mimic_shuffle")
+    if (loaded.shuffle_mode, loaded.chain_mode) != (True, "auto"):
+        raise AssertionError("the export lost the order options")
+    served = serve_trained("mimic_shuffle", loaded, serving_requests(seed=3),
+                           device)
+    r = {"plan": list(model._chain_plan()), "epochs": best["epochs_ran"],
+         "steps": steps, "fit_best_s": fit_s,
+         "steps_per_s": steps / fit_s, "losses": losses,
+         "best_epoch": best["best_epoch"], "best_score": best["best_score"],
+         "k2_launches": k2, "k2_launches_per_step": per_step,
+         "card_vs_cpu_3_steps_max_abs_err": err, "served": served}
+    log(f"  shuffled MIMIC model: {json.dumps(r)}")
+    return r
+
+
+def param_err(a, b) -> float:
+    return max(float(np.nan_to_num(np.abs(x - y), nan=np.inf).max())
+               for x, y in zip(tree_leaves(a.state_dict()),
+                               tree_leaves(b.state_dict())))
+
+
+class BatchSequenced(PartitionDataset):
+    """A partition dataset whose sample ``i`` carries the encoder order
+    ``seqs[i]``."""
+
+    def __init__(self, X, y, partitions, seqs):
+        super().__init__(X, y, partitions)
+        self.seqs = seqs
+
+    def arrays(self):
+        xs, t, _ = super().arrays()
+        return xs, t, self.seqs
+
+
+def featurewise_model(device, **kw):
+    encoders = [MLPFeatureEncoder(MIMIC_STATE, FEATUREWISE_HIDDEN)
+                for _ in range(FEATUREWISE_E)]
+    return MultiModN(MIMIC_STATE, encoders,
+                     [MLPDecoder(MIMIC_STATE, (MIMIC_HIDDEN,) * 2, 2)], 1.0,
+                     0.0, seed=0, device=device, **kw)
+
+
+def featurewise_data(sequences, seed=0, clean=False):
+    """256 samples of 1901 one-feature modalities, 10% of the cells NaN
+    (none with ``clean``), a label from the first 8 features; with
+    ``sequences`` every batch of 64 carries its own permutation of the
+    encoders."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(FEATUREWISE_SAMPLES, FEATUREWISE_E)) \
+        .astype(np.float32)
+    y = (X[:, :8].sum(axis=1) > 0).astype(np.int64)[:, None]
+    missing = rng.random(X.shape) < FEATUREWISE_MISSING
+    if not clean:
+        X[missing] = np.nan
+    parts = [1] * FEATUREWISE_E
+    if not sequences:
+        return PartitionDataset(X, y, parts)
+    n_batches = FEATUREWISE_SAMPLES // FEATUREWISE_BATCH
+    seqs = np.repeat(np.stack([rng.permutation(FEATUREWISE_E)
+                               for _ in range(n_batches)]),
+                     FEATUREWISE_BATCH, axis=0)
+    return BatchSequenced(X, y, parts, seqs)
+
+
+def orders_featurewise(device, label, sequences):
+    """Phase 13 (b), one run: one ``Adam8bit`` step on the card against the
+    same step on the CPU, ``fit`` for 2 epochs (steps/s, K2 launches per
+    step), a profiled step, and ``predict_proba`` on NaN-free rows against
+    the CPU with the trained weights."""
+    kw = {} if sequences else {"shuffle_mode": True}
+    ds = featurewise_data(sequences)
+    model = featurewise_model(device, **kw)
+    if model._chain_plan() != ("scan", not sequences):
+        raise AssertionError(f"{label}: plan {model._chain_plan()}")
+    shapes = [tuple(t.shape) for t in tree_leaves(model.params)]
+    cpu = featurewise_model("cpu", **kw)
+    cpu.load_state_dict(model.state_dict())
+    first = Subset(ds, range(FEATUREWISE_BATCH))
+    t0 = time.perf_counter()
+    cpu.train_epoch(ArrayLoader(first, FEATUREWISE_BATCH), Adam8bit(ADAM_LR),
+                    "cross_entropy")
+    cpu_step_s = time.perf_counter() - t0
+    optimizer = Adam8bit(ADAM_LR)
+    model.train_epoch(ArrayLoader(first, FEATUREWISE_BATCH), optimizer,
+                      "cross_entropy")
+    step_err = param_err(model, cpu)
+    if not step_err <= STEP_TOL:
+        raise AssertionError(f"{label}: one step differs by {step_err}")
+    loader = ArrayLoader(ds, FEATUREWISE_BATCH)
+    history = MultiModNHistory(["y"])
+    torch.cuda.synchronize()
+    FUSED_CHAIN.launches = FUSED_ADAM.launches = 0
+    t0 = time.perf_counter()
+    model.fit(loader, optimizer, "cross_entropy", epochs=FEATUREWISE_EPOCHS,
+              history=history)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    k2, k1 = FUSED_ADAM.launches, FUSED_CHAIN.launches
+    steps = FEATUREWISE_EPOCHS * loader.n_batches
+    per_step = fa.launches_per_update(shapes)
+    if k2 != per_step * steps or k1:
+        raise AssertionError(f"{label}: K2 {k2} launches for {steps} steps "
+                             f"of {per_step}, K1 {k1}")
+    losses = [float(np.mean(g)) for g in history.loss["train"]]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: losses {losses}")
+    profile = profile_steps(model, ArrayLoader(first, FEATUREWISE_BATCH),
+                            optimizer, f"featurewise {label}", "fused_adam",
+                            warm_up=False)
+    cpu.load_state_dict(model.state_dict())
+    clean = featurewise_data(sequences, clean=True)
+    ask = ArrayLoader(clean, FEATUREWISE_BATCH) if sequences else \
+        [m[:FEATUREWISE_BATCH] for m in clean.arrays()[0]]
+    pred_err = max(float(np.abs(g - c).max()) for g, c in zip(
+        model.predict_proba(ask), cpu.predict_proba(ask)))
+    if not pred_err <= TOL:
+        raise AssertionError(f"{label}: predict differs by {pred_err}")
+    r = {"plan": list(model._chain_plan()), "leaves": len(shapes),
+         "steps": steps, "fit_s": fit_s, "steps_per_s": steps / fit_s,
+         "losses": losses, "k2_launches": k2, "k2_launches_per_step":
+         per_step, "cpu_step_s": cpu_step_s,
+         "one_step_max_abs_err": step_err, "predict_max_abs_err": pred_err,
+         "kernels_per_step": profile["kernels_per_step"],
+         "device_busy_share": profile["device_busy_share"],
+         "wall_ms_per_step": profile["wall_ms_per_step"],
+         "device_ms_per_step": profile["device_ms_per_step"],
+         "k2_profiled": profile["fused_adam"]}
+    log(f"  featurewise, {label}: {json.dumps(r)}")
+    return r, shapes
+
+
+def time_adam_featurewise(shapes, gen, device):
+    """K2 on the featurewise model's leaves (fp8, after one prior step):
+    one update of all of them (a launch per 40 leaves) held bit for bit
+    against the plain version, as phase 5 holds its cases; then its device
+    time per update (CUDA events; two updates queued behind the sleep, so
+    the host's table builds between launches count when they outlast the
+    device), the plain version's, and the bytes bound."""
+    b1, b2 = ADAM_BETAS
+    leaves = [adam_leaf(s, "fp8", gen, device, prior_steps=1) + [None]
+              for s in shapes]
+    bad, err, checked = check_adam_leaves(leaves, "fp8")
+    log(f"  K2 on the {len(leaves)} featurewise leaves: {bad} mismatching "
+        f"elements, max abs err of p {err:.3e}, {checked} launches")
+    if bad > 0 or checked != fa.launches_per_update(shapes):
+        raise AssertionError(
+            f"fused_adam disagrees with the plain version on the featurewise "
+            f"leaves: {bad} elements of p, codes or scales differ "
+            f"({checked} launches)")
+    leaves = [tuple(leaf) for leaf in leaves]
+    shapes = tuple(tuple(s) for s in shapes)
+
+    def kernel():
+        FUSED_ADAM.launch(leaves, shapes, lr=ADAM_LR, b1=b1, b2=b2,
+                          eps=ADAM_EPS, fmt="fp8")
+
+    before = FUSED_ADAM.launches
+    ms = time_ms(kernel, reps=2, groups=3)
+    launches = (FUSED_ADAM.launches - before) / 7
+    plain_ms = time_ms(lambda: fa.multi_leaf_update_ref(
+        leaves, lr=ADAM_LR, b1=b1, b2=b2, eps=ADAM_EPS, fmt="fp8"),
+        reps=1, groups=1)
+    bound_ms, bound_by, nbytes = adam_bound(shapes)
+    if launches != fa.launches_per_update(shapes):
+        raise AssertionError(f"K2: {launches} launches per update")
+    return {"leaves": len(shapes), "mismatches": bad, "max_abs_err": err,
+            "tolerance": ADAM_TOL, "ms": ms, "launches": launches,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes}
+
+
+def run_orders(device):
+    """Phase 13."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_orders_") as work:
+        t0 = time.perf_counter()
+        mimic = orders_mimic(device, work)
+        mimic_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runs, shapes = {}, None
+    for label, sequences in (("shuffle_mode", False),
+                             ("per_batch_sequences", True)):
+        runs[label], shapes = orders_featurewise(device, label, sequences)
+    featurewise_s = time.perf_counter() - t0
+    adam = time_adam_featurewise(shapes, torch.Generator(
+        device=device).manual_seed(13), device)
+    log(f"  K2 on the featurewise leaves: {json.dumps(adam)}")
+    return {"mimic": mimic, "featurewise": runs, "featurewise_adam": adam,
+            "mimic_s": mimic_s, "featurewise_s": featurewise_s}
+
+
 def build_kernels():
     """Build every kernel library at once (one nvcc per source)."""
     with ThreadPoolExecutor(max_workers=2) as pool:
@@ -2067,6 +2367,9 @@ def parse_args(argv=None):
     p.add_argument("--stream-folds", action="store_true",
                    help="with --protocol-only: stream every fold's batches "
                         "(MimicConfig.stream_folds)")
+    p.add_argument("--orders-only", action="store_true",
+                   help="run phases 1, 2 and 13 (encoding orders) only and "
+                        "end with the orders line (no ok line)")
     p.add_argument("--resume-child", nargs=2, metavar=("KIND", "DIR"),
                    help=argparse.SUPPRESS)
     return p.parse_args(argv)
@@ -2122,6 +2425,12 @@ def main(argv=None) -> int:
     build_kernels()
     log(f"fused_chain.cu and fused_adam.cu built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
+    if args.orders_only:
+        log("== phase 13: encoding orders")
+        log("orders: " + json.dumps(run_orders(device)))
+        log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
+        log(card)
+        return 0
 
     log("== phase 3: kernel against plain")
     log(f"tolerance {TOL:g}: {TOL_REASON}")
@@ -2165,13 +2474,30 @@ def main(argv=None) -> int:
     log(card_line())
     resume = run_resume(device)
 
+    log("== phase 13: encoding orders")
+    log(card_line())
+    orders = run_orders(device)
+    k1_by_phase = {
+        "4": launches,
+        "9": sum(r["launches"] for r in titanic["served"].values()),
+        "10": mnar_served["launches"],
+        "12": resume["served"]["launches"],
+        "13": orders["mimic"]["served"]["launches"]}
+    k2_by_phase = {
+        "6": runs["Adam8bit"]["launches"],
+        "12": sum(resume["resume"][kind]["k2_launches"]
+                  for kind in ("array", "stream")),
+        "13": orders["mimic"]["k2_launches"] + sum(
+            r["k2_launches"] for r in orders["featurewise"].values())}
+
     main_b = mimic[SERVING_BATCH]
     entry = {
         "name": "fused_chain",
         "route": "cuda",
         "source": "multimodn_tpu_torch/csrc/fused_chain.cu",
         "replaces": "multimodn_tpu/ops/fused_chain.py:132",
-        "launches": launches,
+        "launches": sum(k1_by_phase.values()),
+        "launches_by_phase": k1_by_phase,
         "max_abs_err": max(r["max_abs_err"] for r in mimic.values()),
         "tolerance": TOL,
         "ms": main_b["ms"],
@@ -2198,6 +2524,10 @@ def main(argv=None) -> int:
             "pipeline", "requests", "launches", "launches_per_request",
             "max_abs_err", "batch", "ms", "plain_ms", "bound_ms",
             "bound_by")},
+        "orders": {k: orders["mimic"]["served"][k] for k in (
+            "pipeline", "requests", "launches", "launches_per_request",
+            "max_abs_err", "batch", "ms", "plain_ms", "bound_ms",
+            "bound_by")},
     }
     step = adam["times"]["mimic_step"]
     adam_entry = {
@@ -2205,7 +2535,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "multimodn_tpu_torch/csrc/fused_adam.cu",
         "replaces": "multimodn_tpu/ops/fused_adam.py:151",
-        "launches": runs["Adam8bit"]["launches"],
+        "launches": sum(k2_by_phase.values()),
+        "launches_by_phase": k2_by_phase,
         "max_abs_err": adam["max_abs_err"],
         "mismatches": adam["mismatches"],
         "tolerance": ADAM_TOL,
@@ -2229,6 +2560,14 @@ def main(argv=None) -> int:
         "resume": {kind: {k: resume["resume"][kind][k] for k in (
             "k2_launches", "steps", "mismatching_elements")}
             for kind in ("array", "stream")},
+        "orders": {
+            "mimic_shuffle": {k: orders["mimic"][k] for k in (
+                "k2_launches", "steps", "k2_launches_per_step")},
+            "featurewise": {label: {k: r[k] for k in (
+                "k2_launches", "steps", "k2_launches_per_step", "leaves",
+                "k2_profiled")} for label, r in
+                orders["featurewise"].items()},
+            "featurewise_update": orders["featurewise_adam"]},
     }
     log("earlier designs (not measured in this run): "
         + json.dumps(EARLIER))
@@ -2239,6 +2578,7 @@ def main(argv=None) -> int:
     log("transformer: " + json.dumps(transformer))
     log("resume: " + json.dumps({k: resume[k] for k in (
         "resume", "disk", "pipelines", "payload_write", "rates")}))
+    log("orders: " + json.dumps(orders))
     log(json.dumps({"kernels": [entry, adam_entry]}))
     log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
     log(card)

@@ -19,10 +19,13 @@ latter, the best carry and scores); called again with the same directory,
 they resume there. ``fit_best_resumable`` and the streamed
 ``fit_best_streaming`` share one payload and one resume path
 (``_fit_best_checkpointed``). Every epoch's dropout generator follows from
-the absolute epoch counter and a shuffled ``ArrayLoader``'s order and
-generator state ride the payload, so a chunked, killed and resumed run
-equals one uninterrupted ``fit`` or ``fit_best`` call bit for bit, dropout
-and shuffling included. The JAX package's ``OrbaxCheckpointer`` has no
+the absolute epoch counter, as does every per-batch encoder order that
+``shuffle_mode`` draws on a traced chain; a shuffled ``ArrayLoader``'s order
+and generator state and the model's per-call order stream
+(``random.Random``, ``chain_mode='unrolled'``) ride the payload. So a
+chunked, killed and resumed run equals one uninterrupted ``fit`` or
+``fit_best`` call bit for bit, dropout and shuffling included. The JAX
+package's payload carries no order stream. The JAX package's ``OrbaxCheckpointer`` has no
 counterpart: orbax is a JAX library.
 """
 from __future__ import annotations
@@ -172,7 +175,7 @@ def _restore_loader(loader, state: Optional[dict]):
             f"samples, this one holds {loader.n_samples}")
     loader._order = np.array(state["order"])
     loader._rng.bit_generator.state = state["rng"]
-    loader._host, loader._stacks = None, {}
+    loader._host, loader._stacks, loader._batch_seq = None, {}, None
 
 
 def _load_resume_payload(state_path, model, optimizer, history,
@@ -196,6 +199,8 @@ def _load_resume_payload(state_path, model, optimizer, history,
     _restore_opt_state(model, optimizer, payload.get("opt_state"))
     model._epoch_counter = payload["epoch_counter"]
     model._cycle_offset = payload["cycle_offset"]
+    if "shuffle_rng" in payload:        # absent from earlier payloads
+        model._shuffle_rng.setstate(payload["shuffle_rng"])
     if train_loader is not None:
         _restore_loader(train_loader, payload.get("train_loader"))
     return int(payload["epoch"]), payload, _merge_history(
@@ -209,6 +214,7 @@ def _write_resume_payload(state_path, model, epoch, history,
         "epoch": epoch,
         "epoch_counter": model._epoch_counter,
         "cycle_offset": model._cycle_offset,
+        "shuffle_rng": model._shuffle_rng.getstate(),
         "model_state_dict": _to_numpy(model.params),
         "opt_state": _to_numpy(model.opt_state),
         "history": history,
@@ -328,7 +334,9 @@ def fit_resumable(model, train_loader, optimizer, criterion=None, *,
     epochs)`` runs after each chunk's checkpoint.
 
     Streaming loaders (``data.streaming``, ``data.disk``) train each chunk
-    through ``fit_streaming``; train and val loaders must be of one kind,
+    through ``fit_streaming``, epoch by epoch, so a model with the per-call
+    shuffle cadence trains there too; train and val loaders must be of one
+    kind,
     and neither may be a shuffled streaming loader (its permutation lives in
     the host loader, or its torch sampler, and is not in the payload).
 
@@ -356,8 +364,15 @@ def fit_resumable(model, train_loader, optimizer, criterion=None, *,
     ran = 0
     while start < epochs:
         n = min(chunk_epochs, epochs - start)
-        model.fit(train_loader, optimizer, criterion, epochs=n,
-                  history=history, val_loader=val_loader, val_tag=val_tag)
+        if streaming:
+            from multimodn_tpu_torch.data.streaming import fit_streaming
+            history = fit_streaming(
+                model, train_loader, optimizer, criterion, epochs=n,
+                history=history, val_loader=val_loader, val_tag=val_tag)
+        else:
+            model.fit(train_loader, optimizer, criterion, epochs=n,
+                      history=history, val_loader=val_loader,
+                      val_tag=val_tag)
         start += n
         ran += n
         _write_resume_payload(state_path, model, start, history,

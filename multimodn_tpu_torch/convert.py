@@ -13,7 +13,8 @@ import numpy as np
 import torch
 
 from multimodn_tpu_torch.core.nn import resolve_device
-from multimodn_tpu_torch.core.tree import tree_leaves, tree_map
+from multimodn_tpu_torch.core.tree import tree_leaves, tree_map, \
+    tree_unflatten
 
 
 def unstack_encoders(stacked: dict) -> list:
@@ -24,6 +25,13 @@ def unstack_encoders(stacked: dict) -> list:
                          f"(E,) axis: {sorted(n)}")
     return [tree_map(lambda leaf, i=i: leaf[i], stacked)
             for i in range(n.pop())]
+
+
+def stack_encoders(encoders: list) -> dict:
+    """Per-encoder list of numpy trees -> the JAX package's scan-stacked
+    storage (every leaf with a leading ``(E,)`` axis)."""
+    groups = zip(*(tree_leaves(e) for e in encoders))
+    return tree_unflatten(encoders[0], [np.stack(g) for g in groups])
 
 
 def _per_encoder(tree: dict) -> dict:

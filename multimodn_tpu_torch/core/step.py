@@ -1,5 +1,5 @@
 """Batch loss, training and evaluation epochs, selection (PyTorch twin of
-``multimodn_tpu/core/step.py``) on the unrolled chain.
+``multimodn_tpu/core/step.py``).
 
 PyTorch runs eagerly, so an epoch is a Python loop over ``(batch,
 n_real)`` pairs: forward, ``torch.autograd.grad``, the optimizer. Per-batch
@@ -11,9 +11,13 @@ the epoch; the caller copies them to the host once per epoch
 tail rows) or from a streaming loader (``data.streaming.device_batches``),
 through the same code.
 
-The MNAR mitigations of ``nan_skip='sample'`` (``presence_dropout``,
-``presence_penalty``) act in training only. The scan and switch chains and
-orders that repeat an encoder are not ported yet (ROADMAP.md Queue A).
+The batch loss routes an order as the JAX package does: a static order
+runs the unrolled chain, or executions plus ``combine_executions`` when it
+repeats an encoder; per-batch sequences and the in-program shuffle run the
+traced chains (``core/scan_chain.py``): ``forward_chain`` on each batch's
+pairs. The MNAR mitigations of
+``nan_skip='sample'`` (``presence_dropout``, ``presence_penalty``) act in
+training only.
 """
 from __future__ import annotations
 
@@ -22,10 +26,13 @@ from typing import List, Sequence, Tuple
 import torch
 
 from multimodn_tpu_torch.core.fusion import (
+    combine_executions,
     decode_grid,
     forward_chain,
+    forward_chain_executions,
     has_repeated_encoders,
     sample_missing,
+    switch_widths,
 )
 from multimodn_tpu_torch.core.metrics import masked_binary_auroc, safe_div
 from multimodn_tpu_torch.core.tree import (
@@ -38,6 +45,11 @@ STATIC_ORDER_MESSAGE = (
     "presence_penalty needs a STATIC modality order (no shuffle_mode, "
     "per-batch encoding sequences, or repeated encoders): the penalty "
     "reconstructs execution-order state deltas from the row-indexed stack.")
+REPEATS_NEED_UNROLLED = (
+    "encoding sequences with REPEATED encoders need the unrolled chain: the "
+    "traced-order chains keep one metric row per encoder and cannot express "
+    "the reference's per-execution accumulation (multimodn.py:171-192). Use "
+    "chain_mode='unrolled' (or 'auto').")
 GRID_KEYS = ("err_loss", "state_change", "n_correct", "tp", "tn", "fp", "fn",
              "n_counted")
 
@@ -93,9 +105,11 @@ def make_batch_loss_fn(encoders, decoders, init_state, criterion,
                        err_penalty: float, state_change_penalty: float,
                        order: Sequence[Tuple[int, int]], nan_skip: str,
                        chain: str = "unrolled", presence_dropout: float = 0.0,
-                       presence_penalty: float = 0.0):
+                       presence_penalty: float = 0.0, shuffle: bool = False,
+                       per_batch_seq: bool = False):
     """``loss_fn(params, data, targets, sample_mask, generator, init_offset,
-    train, drop=None) -> (loss, aux)`` for one padded batch.
+    train, drop=None, seq=None, perm=None) -> (loss, aux)`` for one padded
+    batch.
 
     The loss is the reference's (multimodn.py:194-202): the grid mean times
     ``err_penalty`` plus the mean state change times
@@ -104,32 +118,58 @@ def make_batch_loss_fn(encoders, decoders, init_state, criterion,
     executed flags under ``nan_skip='batch'``, the one mode in which the
     reference's torch optimizer skips parameters, and None otherwise.
 
+    ``chain``: ``'unrolled'`` runs the static ``order`` (executions plus
+    ``combine_executions`` when it repeats an encoder); ``'scan'`` (the
+    first encoder's computation for every step, homogeneous encoders) and
+    ``'switch'`` run the traced chains. ``per_batch_seq``: the batch's
+    order is ``seq``, an (L,) encoder sequence paired with modalities 0..L-1
+    (reference ``multimodn.py:516-525``), on a traced chain. ``shuffle``:
+    in training, the ``(data_idx, enc_idx)`` pairs are taken in the order
+    ``perm`` gives (the reference's ``random.shuffle`` of the pairs,
+    ``multimodn.py:527-529``; JAX ``core/step.py:215-224``); the caller
+    draws ``perm``.
+
     MNAR mitigations for ``nan_skip='sample'``, in training only:
     ``presence_dropout`` (p) re-marks each (sample, modality) pair missing
     with probability p before the chain runs, from ``drop`` when given,
     else drawn from ``generator`` (``draw_presence_dropout``);
     ``presence_penalty`` (lambda) adds ``lambda * presence_penalty_term`` on
-    the injected data. The history's grids do not include it."""
-    if chain != "unrolled":
-        raise NotImplementedError(
-            f"chain={chain!r}: the scan and switch chains are not ported yet "
-            "(ROADMAP.md Queue A, 'Encoding orders')")
+    the injected data. It needs a static order that repeats no encoder. The
+    history's grids do not include it."""
+    if chain not in ("unrolled", "scan", "switch"):
+        raise ValueError(f"chain must be 'unrolled', 'scan' or 'switch', "
+                         f"got {chain!r}")
+    if per_batch_seq and chain not in ("scan", "switch"):
+        raise ValueError("per_batch_seq requires chain='scan' or 'switch'")
+    traced = chain in ("scan", "switch")
+    repeats = not per_batch_seq and has_repeated_encoders(order)
+    if repeats and traced:
+        raise ValueError(REPEATS_NEED_UNROLLED)
     if presence_dropout or presence_penalty:
         if nan_skip != "sample":
             raise ValueError(
                 "presence_dropout/presence_penalty are sample-granularity "
                 "mitigations; they require nan_skip='sample' (batch mode is "
                 "already presence-robust, 'none' never skips).")
-    if presence_penalty and has_repeated_encoders(order):
+    if presence_penalty and (shuffle or per_batch_seq or repeats):
         raise ValueError(STATIC_ORDER_MESSAGE)
-    if has_repeated_encoders(order):
-        raise NotImplementedError(
-            "orders that repeat an encoder are not ported yet (ROADMAP.md "
-            "Queue A, 'Encoding orders')")
     n_enc, n_dec = len(encoders), len(decoders)
+    # The scan chain runs the first encoder's computation at every step.
+    chain_encoders = [encoders[0]] * n_enc if chain == "scan" else encoders
+
+    def batch_order(seq, perm, train):
+        """The batch's (data_idx, enc_idx) pairs on a traced chain."""
+        pairs = list(enumerate(int(e) for e in seq)) if per_batch_seq \
+            else list(order)
+        if shuffle and train:
+            if perm is None:
+                raise ValueError("shuffle takes each training batch's "
+                                 "permutation of its pairs; got None")
+            pairs = [pairs[int(i)] for i in perm]
+        return pairs
 
     def loss_fn(params, data, targets, sample_mask, generator, init_offset,
-                train: bool, drop=None):
+                train: bool, drop=None, seq=None, perm=None):
         if presence_dropout and train:
             if drop is None:
                 if generator is None:
@@ -139,12 +179,29 @@ def make_batch_loss_fn(encoders, decoders, init_state, criterion,
                     generator, sample_mask.shape[0], len(data),
                     presence_dropout, sample_mask.device)
             data = inject_presence_dropout(data, drop)
-        states, state_change, row_ok, n_counted, final_state = forward_chain(
-            encoders, init_state, params, data, sample_mask, order=order,
-            nan_skip=nan_skip, init_offset=init_offset, train=train,
-            generator=generator)
-        grid = decode_grid(decoders, params, states, targets, sample_mask,
-                           row_ok, criterion)
+        if repeats:
+            states, sc_x, ok_x, cnt_x, final_state = \
+                forward_chain_executions(
+                    encoders, init_state, params, data, sample_mask,
+                    order=order, nan_skip=nan_skip, init_offset=init_offset,
+                    train=train, generator=generator)
+            exec_grid = decode_grid(decoders, params, states, targets,
+                                    sample_mask, ok_x, criterion)
+            grid = combine_executions(order, n_enc, exec_grid, sc_x, ok_x,
+                                      cnt_x, exec_grid["outputs"])
+            state_change, row_ok = grid["state_change"], grid["row_ok"]
+            n_counted = grid["n_counted"]
+        else:
+            states, state_change, row_ok, n_counted, final_state = \
+                forward_chain(
+                    chain_encoders, init_state, params, data, sample_mask,
+                    order=batch_order(seq, perm, train) if traced else order,
+                    nan_skip=nan_skip, init_offset=init_offset, train=train,
+                    generator=generator,
+                    widths=switch_widths(encoders, data)
+                    if chain == "switch" else None)
+            grid = decode_grid(decoders, params, states, targets, sample_mask,
+                               row_ok, criterion)
         global_err = grid["err_loss"].sum() / (n_dec * (n_enc + 1))
         global_sc = state_change.sum() / n_enc
         loss = global_err * err_penalty + global_sc * state_change_penalty
@@ -234,13 +291,16 @@ def stack_batches(stacks, counts: Sequence[int]):
 
 
 def train_batch(loss_fn, optimizer, params, opt_state, batch, generator,
-                offset: int):
+                offset: int, seq=None, perm=None):
     """One training step on one padded batch: the loss and its gradient
-    with respect to every parameter leaf, then ``gated_update``. Returns
-    ``(opt_state, aux)`` with ``aux`` detached."""
+    with respect to every parameter leaf, then ``gated_update``. ``seq``
+    and ``perm`` are the batch's encoder sequence and order permutation,
+    when the loss takes them. Returns ``(opt_state, aux)`` with ``aux``
+    detached."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
     leaves = tree_leaves(live)
-    loss, aux = loss_fn(live, *batch, generator, offset, True)
+    loss, aux = loss_fn(live, *batch, generator, offset, True, seq=seq,
+                        perm=perm)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = tree_unflatten(params, [
         torch.zeros_like(p) if g is None else g
@@ -257,17 +317,20 @@ def _grid_sums(ys: List[dict]) -> dict:
 
 
 def run_train_epoch(loss_fn, optimizer, params, opt_state, batches,
-                    generator, offset: int):
+                    generator, offset: int, seqs=None, perms=None):
     """Every ``(batch, n_real)`` of ``batches`` (``stack_batches`` or a
-    streamed source) through ``train_batch``. Returns ``(opt_state, sums,
-    batch_log, offset, n_batches)``: the per-cell sums of ``GRID_KEYS``, an
-    (n_batches, 3) tensor of (loss, grid mean, state change) per batch, all
-    on the device, the init-state cycle offset advanced by the real samples,
-    and the batches run."""
+    streamed source) through ``train_batch``; batch ``b`` gets ``seqs[b]``
+    and the ``b``-th permutation of the iterator ``perms`` when they are
+    given. Returns ``(opt_state, sums, batch_log, offset, n_batches)``: the
+    per-cell sums of ``GRID_KEYS``, an (n_batches, 3) tensor of (loss, grid
+    mean, state change) per batch, all on the device, the init-state cycle
+    offset advanced by the real samples, and the batches run."""
     ys: List[dict] = []
-    for batch, n_real in batches:
-        opt_state, aux = train_batch(loss_fn, optimizer, params, opt_state,
-                                     batch, generator, offset)
+    for b, (batch, n_real) in enumerate(batches):
+        opt_state, aux = train_batch(
+            loss_fn, optimizer, params, opt_state, batch, generator, offset,
+            seq=None if seqs is None else seqs[b],
+            perm=None if perms is None else next(perms))
         offset += n_real
         ys.append({k: aux[k] for k in GRID_KEYS + ("loss", "global_err",
                                                    "global_sc")})
@@ -277,18 +340,20 @@ def run_train_epoch(loss_fn, optimizer, params, opt_state, batches,
 
 
 @torch.no_grad()
-def run_eval_epoch(loss_fn, params, batches, offset: int):
-    """Every ``(batch, n_real)`` of ``batches`` in evaluation mode. Returns
-    ``(sums, final_outputs, targets, mask, offset, n_batches)``: the grid
-    sums on the device; per decoder, the final-encoder-row outputs of every
-    (padded) sample, ``(n_batches * B, C_d)``, which the performance suite
-    and the selection score read (multimodn.py:354-357); the targets
-    ``(n_batches * B, D)`` and sample mask ``(n_batches * B,)`` in the same
-    rows; the advanced offset and the batches run."""
+def run_eval_epoch(loss_fn, params, batches, offset: int, seqs=None):
+    """Every ``(batch, n_real)`` of ``batches`` in evaluation mode, batch
+    ``b`` with ``seqs[b]`` when given. Returns ``(sums, final_outputs,
+    targets, mask, offset, n_batches)``: the grid sums on the device; per
+    decoder, the final-encoder-row outputs of every (padded) sample,
+    ``(n_batches * B, C_d)``, which the performance suite and the selection
+    score read (multimodn.py:354-357); the targets ``(n_batches * B, D)``
+    and sample mask ``(n_batches * B,)`` in the same rows; the advanced
+    offset and the batches run."""
     ys: List[dict] = []
     targets, masks = [], []
-    for batch, n_real in batches:
-        _, aux = loss_fn(params, *batch, None, offset, False)
+    for b, (batch, n_real) in enumerate(batches):
+        _, aux = loss_fn(params, *batch, None, offset, False,
+                         seq=None if seqs is None else seqs[b])
         offset += n_real
         ys.append({k: aux[k] for k in GRID_KEYS + ("final_outputs",)})
         targets.append(batch[1])
@@ -349,17 +414,33 @@ def make_forward_fn(encoders, decoders, init_state,
                     chain: str = "unrolled"):
     """Return ``forward(params, data, sample_mask, init_offset=0) ->
     (preds (E+1, D, B) argmax classes, outputs list of (E+1, B, C_d),
-    states (E+1, B, S), final_state (B, S))``."""
-    if chain != "unrolled":
-        raise NotImplementedError(
-            f"chain={chain!r}: the scan and switch chains are not ported yet "
-            "(ROADMAP.md Queue A, 'Encoding orders'); the unrolled chain "
-            "gives the same results")
+    states (E+1, B, S), final_state (B, S))``.
+
+    An order that repeats an encoder runs executions: each encoder's row
+    takes its last live execution's state, and a row with none keeps the
+    initial state (JAX ``core/step.py:1021-1036``); the scan chain refuses
+    such an order. Every other order runs ``forward_chain``, with the switch
+    chain's input fit on ``chain='switch'``."""
+    repeats = has_repeated_encoders(order)
+    if chain == "scan" and repeats:
+        raise ValueError(REPEATS_NEED_UNROLLED)
 
     def forward(params, data, sample_mask, init_offset=0):
-        states, _, _, _, final_state = forward_chain(
-            encoders, init_state, params, data, sample_mask,
-            order=order, nan_skip=nan_skip, init_offset=init_offset)
+        if repeats:
+            states_x, _, ok_x, _, final_state = forward_chain_executions(
+                encoders, init_state, params, data, sample_mask,
+                order=order, nan_skip=nan_skip, init_offset=init_offset)
+            rows = [states_x[0]] * (len(encoders) + 1)
+            for k, (_d, e) in enumerate(order):
+                rows[e + 1] = torch.where(ok_x[k + 1] > 0, states_x[k + 1],
+                                          rows[e + 1])
+            states = torch.stack(rows)
+        else:
+            states, _, _, _, final_state = forward_chain(
+                encoders, init_state, params, data, sample_mask,
+                order=order, nan_skip=nan_skip, init_offset=init_offset,
+                widths=switch_widths(encoders, data)
+                if chain == "switch" else None)
         outputs = [dec.apply(params["decoders"][d], states)
                    for d, dec in enumerate(decoders)]
         preds = torch.stack([o.argmax(dim=-1) for o in outputs], dim=1)

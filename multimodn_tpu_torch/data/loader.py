@@ -6,7 +6,8 @@ per modality, ``(n_batches, B, D)`` int64 targets and a ``(n_batches, B)``
 sample mask, and copied to the device in one go; the training loop then
 slices batches without host work. The last short batch is padded with zero
 rows whose mask is 0, and every loss and metric is mask-exact. NaNs are kept:
-they mark missing modalities.
+they mark missing modalities. A dataset may give every sample its encoder
+order; ``batch_sequences`` checks that each batch shares one.
 """
 from __future__ import annotations
 
@@ -76,6 +77,7 @@ class ArrayLoader:
         self._order = np.arange(self.n_samples)
         self._host = None
         self._stacks = {}
+        self._batch_seq = None
 
     def __len__(self) -> int:
         return self.n_batches
@@ -95,6 +97,28 @@ class ArrayLoader:
     def has_per_batch_sequences(self) -> bool:
         return self._seq is not None and self.encoding_sequence is None
 
+    def batch_sequences(self) -> Optional[np.ndarray]:
+        """Per-batch encoder orders as an ``(n_batches, L)`` int64 array
+        over each batch's real rows, or None when the dataset gives no
+        sequence or one shared by every sample. Raises the reference's
+        error (``multimodn.py:520-523``) when a batch mixes sequences:
+        per-sample orders need batch size 1 or batches of equal orders."""
+        if not self.has_per_batch_sequences():
+            return None
+        if self._batch_seq is None:
+            seqs = self._pad_stack(self._seq)
+            rows = []
+            for b, n_real in enumerate(self.batch_counts()):
+                real = seqs[b, :n_real]
+                if not (real == real[0]).all():
+                    raise ValueError(
+                        "Encoder sequence has different values across the "
+                        "batch. Hint: set batch size to 1 to avoid this "
+                        "error.")
+                rows.append(real[0])
+            self._batch_seq = np.stack(rows)
+        return self._batch_seq
+
     def batch_counts(self) -> List[int]:
         """Real (unpadded) samples in each batch; the padding is the tail."""
         return [min(self.batch_size, self.n_samples - b * self.batch_size)
@@ -105,6 +129,7 @@ class ArrayLoader:
             self._rng.shuffle(self._order)
             self._host = None
             self._stacks = {}
+            self._batch_seq = None
 
     def _pad_stack(self, arr: np.ndarray) -> np.ndarray:
         """(N, ...) in the current order -> (n_batches, B, ...) with a

@@ -344,11 +344,19 @@ def train_epoch_streaming(model, loader, optimizer, criterion=None,
 def fit_streaming(model, train_loader, optimizer, criterion=None, *,
                   epochs: int, history=None, val_loader=None,
                   val_tag: str = "val"):
-    """``MultiModN.fit`` over streaming loaders; returns ``history``."""
+    """``epochs`` of ``train_epoch_streaming``, each followed by
+    ``test_epoch_streaming`` on ``val_loader`` when given, as the JAX
+    package composes it: the history ``MultiModN.fit`` would write, and a
+    model with the per-call shuffle cadence (``chain_mode='unrolled'``)
+    draws its order for every epoch. Returns ``history``."""
     _require_streaming(train_loader, val_loader)
-    return model.fit(train_loader, optimizer, criterion, epochs=epochs,
-                     history=history, val_loader=val_loader,
-                     val_tag=val_tag)
+    for _ in range(epochs):
+        train_epoch_streaming(model, train_loader, optimizer, criterion,
+                              history)
+        if val_loader is not None:
+            test_epoch_streaming(model, val_loader, criterion,
+                                 history=history, tag=val_tag)
+    return history
 
 
 def test_epoch_streaming(model, loader, criterion=None, history=None,
@@ -391,6 +399,9 @@ def fit_best_streaming(model, train_loader, optimizer, criterion=None, *,
     _require_streaming(train_loader, val_loader)
     if train_loader.shuffle or val_loader.shuffle:
         raise NotImplementedError(SHUFFLED_SELECTION)
+    # The per-call shuffle cadence would freeze one order for every epoch:
+    # the model's fit_best guard (JAX data/streaming.py:645-648).
+    model._validate_fused_shuffle()
     from multimodn_tpu_torch import checkpoint as ckpt
 
     state_path = None

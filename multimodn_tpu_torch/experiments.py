@@ -8,7 +8,11 @@ folds one after another. Here the folds run one after another through
 ``MultiModN.fit_best``, with the same arguments and the same per-fold
 results. Streaming fold loaders (``data.streaming``, ``data.disk``; the JAX
 package's ``experiments_stream.kfold_fit_best_streamed``) take the same path:
-each fold runs ``fit_best`` over its streamed batches.
+each fold runs ``fit_best`` over its streamed batches. The encoder orders
+reach every fold through its model (``MultiModN._resolve_order``): loaders
+with one or per-batch sequences, and ``shuffle_mode`` on a chain that
+shuffles per batch, where each fold draws the stream a fresh model of its
+seed would.
 """
 from __future__ import annotations
 
@@ -50,8 +54,9 @@ def kfold_fit_best(
         patience: per-fold early stopping, ``fit_best``'s semantics.
         mesh, fold_axis, on_epoch: not ported (fold sharding across GPUs,
             ROADMAP.md Queue A item 20; progress callbacks, item 6); they
-            raise ``NotImplementedError``, as do models with
-            ``shuffle_mode`` (item 8).
+            raise ``NotImplementedError``. So does ``shuffle_mode`` on an
+            explicit ``chain_mode='unrolled'``, as in the JAX package: its
+            per-call order would be frozen for every epoch.
 
     Streaming folds: every loader streams or none does; no loader may be
     shuffled (``fit_best_streaming``'s rule) and each needs sized geometry
@@ -99,10 +104,11 @@ def kfold_fit_best(
     if len(seeds) != len(folds):
         raise ValueError(f"{len(seeds)} seeds for {len(folds)} folds")
     models = [model_factory(s) for s in seeds]
-    if models and models[0].shuffle_mode:
+    if models and models[0].shuffle_mode and not models[0]._chain_plan()[1]:
         raise NotImplementedError(
-            "kfold_fit_best with shuffle_mode needs the scan or switch "
-            "chain, not ported yet (ROADMAP.md Queue A item 8)")
+            "kfold_fit_best supports shuffle_mode only for chains that "
+            "shuffle per batch (homogeneous 'scan' or 'switch' chains); "
+            "the unrolled chain's per-call shuffle cannot vary per epoch.")
     results = []
     for model, (train_loader, val_loader) in zip(models, folds):
         info, train_sums, val_sums = model._fit_best(

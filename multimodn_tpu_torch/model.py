@@ -8,23 +8,33 @@ the JAX package as plain copies.
 
 Inference: ``predict`` / ``predict_proba`` on per-modality arrays or a
 loader (no NaN skip, quirk #9), ``fused_forward`` through the fused-chain
-CUDA kernel, and ``get_states``. Training: ``train_epoch``, ``test``, ``fit`` and ``fit_best``
-on the unrolled chain, one Python loop over batches per epoch with one host
+CUDA kernel, and ``get_states``. Training: ``train_epoch``, ``test``, ``fit``
+and ``fit_best``, one Python loop over batches per epoch with one host
 transfer per epoch; the optimizer state lives in ``opt_state``. Every one
 of them takes an ``ArrayLoader`` or a streaming loader (``data.streaming``,
 ``data.disk``), whose batches are copied to the device one ahead. The
 ``StaticInitState`` cycle continues across every call, as the reference's
 shared ``itertools.cycle`` does.
+
+The encoder order follows the JAX package: a loader's dataset may give
+one encoder sequence or one per batch, a static order may repeat an encoder,
+and ``shuffle_mode`` draws a fresh order per training batch on the traced
+chains (``chain_mode`` 'auto', 'scan', 'switch'), or once per call with
+``random.Random(seed)`` on an explicit ``chain_mode='unrolled'``.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Union
+import itertools
+import random
+from typing import Callable, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from multimodn_tpu_torch.convert import params_from_jax, params_to_numpy
-from multimodn_tpu_torch.core.fusion import default_order
+from multimodn_tpu_torch.core.fusion import default_order, \
+    has_repeated_encoders
+from multimodn_tpu_torch.core.scan_chain import encoders_homogeneous
 from multimodn_tpu_torch.core.history import MultiModNHistory
 from multimodn_tpu_torch.core.losses import resolve_criterion
 from multimodn_tpu_torch.core.metrics import get_performance_metrics
@@ -35,7 +45,6 @@ from multimodn_tpu_torch.core.state import (
     TrainableInitState,
 )
 from multimodn_tpu_torch.core.step import (
-    STATIC_ORDER_MESSAGE,
     epoch_reduction,
     make_batch_loss_fn,
     make_forward_fn,
@@ -51,17 +60,44 @@ from multimodn_tpu_torch.ops.fused_chain import ChainSpec, fused_chain_forward
 from multimodn_tpu_torch.optim import Optimizer
 from multimodn_tpu_torch.utils.summary import summarize_model
 
+CHAIN_MODES = ("auto", "unrolled", "scan", "switch")
+TRACED_CHAINS = ("scan", "switch")
+# Keys the per-batch order permutations of a training epoch apart from its
+# dropout draws (the JAX package folds the same constant into its batch key,
+# core/step.py:221).
+ORDER_FOLD = 982451653
+
+
+class TrainingPlan(NamedTuple):
+    """A training call's batch loss, whether its chain shuffles the order
+    per batch, the static order, and whether orders come per batch."""
+    loss_fn: Callable
+    shuffle: bool
+    order: tuple
+    per_batch: bool
+
 
 class MultiModN:
     """Sequential multimodal fusion over a shared state.
 
     ``device`` defaults to CUDA; without a GPU the caller must pass
-    ``device="cpu"``. Everything runs the unrolled chain, which gives the
-    same results as the JAX package's scan and switch chains. Training with
-    ``shuffle_mode`` is not ported yet and raises; the option is kept for
-    ``export_model``. ``presence_dropout`` and ``presence_penalty`` are the
+    ``device="cpu"``. ``presence_dropout`` and ``presence_penalty`` are the
     MNAR mitigations of ``nan_skip='sample'``, active in training only
-    (``core/step.py``)."""
+    (``core/step.py``).
+
+    ``chain_mode`` picks the chain as the JAX package does
+    (``_chain_plan``): 'unrolled' runs a static order; 'scan' (identical
+    encoders only) and 'switch' take the order per batch, which
+    ``shuffle_mode`` redraws for every training batch and a loader's
+    per-batch sequences supply; 'auto' takes 'scan' for identical encoders
+    when ``shuffle_mode`` is on or there are 16 or more, 'switch' for mixed
+    encoders under ``shuffle_mode``, else 'unrolled'. With an explicit
+    'unrolled', ``shuffle_mode`` shuffles the order once per training call
+    with ``random.Random(seed)``, and ``fit`` / ``fit_best`` refuse it. All
+    chains give the same results on the same order. Parameters stay in
+    per-encoder storage whatever the chain. ``scan_unroll`` is stored and
+    exported for the JAX package, where it unrolls the batch scan; it has
+    no effect here."""
 
     def __init__(
         self,
@@ -77,6 +113,8 @@ class MultiModN:
         seed: int = 0,
         presence_dropout: float = 0.0,
         presence_penalty: float = 0.0,
+        chain_mode: str = "auto",
+        scan_unroll=None,
         device=None,
     ):
         self.device = resolve_device(device)
@@ -105,6 +143,9 @@ class MultiModN:
                 "presence_dropout/presence_penalty are sample-granularity "
                 "MNAR mitigations; they require nan_skip='sample' ('batch' "
                 "is already presence-robust, 'none' never skips).")
+        if chain_mode not in CHAIN_MODES:
+            raise ValueError(f"chain_mode must be one of {CHAIN_MODES}, got "
+                             f"{chain_mode!r}")
         self.err_penalty = float(err_penalty)
         # The reference bakes a 0.01 factor into the constructor (quirk #1).
         self.state_change_penalty = 0.01 * float(state_change_penalty)
@@ -113,7 +154,12 @@ class MultiModN:
         self.ones_initialized_counts = ones_initialized_counts
         self.presence_dropout = float(presence_dropout)
         self.presence_penalty = float(presence_penalty)
+        self.chain_mode = chain_mode
+        self.scan_unroll = scan_unroll
+        self._chain_plan()      # chain_mode='scan' needs identical encoders
         self._seed = seed
+        # The per-call shuffle cadence's order stream (chain_mode='unrolled').
+        self._shuffle_rng = random.Random(seed)
         self.init_state = (init_state if init_state is not None
                            else TrainableInitState(state_size))
         self.init_state.to(self.device)
@@ -131,7 +177,7 @@ class MultiModN:
         self._cycle_offset = 0
         self._opt = None            # the optimizer opt_state belongs to
         self.opt_state = None
-        self._epoch_counter = 0     # seeds each training epoch's dropout
+        self._epoch_counter = 0     # seeds each training epoch's draws
 
     # ------------------------------------------------------------------
     # Cycle bookkeeping
@@ -154,30 +200,168 @@ class MultiModN:
     # ------------------------------------------------------------------
     # Inference
     # ------------------------------------------------------------------
-    def _resolve_order(self, encoder_sequence=None, loader=None):
-        if loader is not None and not self._streams(loader):
-            if loader.has_per_batch_sequences():
+    def _chain_plan(self):
+        """``(chain, shuffles in the chain)`` from ``chain_mode`` (JAX
+        ``model.py:237-256``)."""
+        if self.chain_mode == "unrolled":
+            return "unrolled", False
+        homogeneous = encoders_homogeneous(self.encoders)
+        if self.chain_mode == "scan":
+            if not homogeneous:
+                raise ValueError(
+                    "chain_mode='scan' requires structurally identical "
+                    "encoders (same class, dims, activation)")
+            return "scan", self.shuffle_mode
+        if self.chain_mode == "switch":
+            return "switch", self.shuffle_mode
+        if homogeneous and (self.shuffle_mode or len(self.encoders) >= 16):
+            return "scan", self.shuffle_mode
+        if not homogeneous and self.shuffle_mode:
+            return "switch", True
+        return "unrolled", False
+
+    def _check_repeat_downgrade(self, for_eval: bool = False):
+        """An order that repeats an encoder runs unrolled (JAX
+        ``model.py:442-466``): refuse an explicit traced ``chain_mode``,
+        and a training ``shuffle_mode`` the unrolled chain cannot redraw per
+        batch."""
+        if self.chain_mode != "auto":
+            raise ValueError(
+                "encoding sequences with REPEATED encoders need the "
+                "unrolled chain (per-execution metric accumulation, "
+                "multimodn.py:171-192); drop chain_mode="
+                f"{self.chain_mode!r} or use 'auto'/'unrolled'.")
+        if self.shuffle_mode and not for_eval:
+            raise NotImplementedError(
+                "shuffle_mode with a REPEATED encoding sequence cannot "
+                "shuffle per batch (the traced chains reject repeats); "
+                "construct the model with chain_mode='unrolled' for the "
+                "per-call shuffle cadence.")
+
+    def _validate_fused_shuffle(self):
+        """``fit`` / ``fit_best`` would train every epoch on the one order
+        the per-call cadence draws (JAX ``model.py:499-507``)."""
+        if self.shuffle_mode and not self._chain_plan()[1]:
+            raise NotImplementedError(
+                "fit()/fit_best() cannot express the unrolled chain's "
+                "per-call encoder-order shuffle (one order would be frozen "
+                "for every epoch, unlike the reference's per-batch redraw); "
+                "loop train_epoch() or use a homogeneous/scan or switch "
+                "chain, which shuffles per batch.")
+
+    def _validate_pairings(self, order, loader, seqs=None):
+        """Every (modality, encoder) pairing that will run must agree in
+        width, and per-batch sequences may not repeat an encoder (JAX
+        ``model.py:531-565``). ``seqs`` holds per-batch rows; without it,
+        ``order`` is checked."""
+        widths = getattr(loader, "modality_widths", None)
+
+        def check(pairs):
+            if widths is None:
+                return
+            for k, e in pairs:
+                nf = getattr(self.encoders[int(e)], "n_features", None)
+                if nf is not None and widths[int(k)] != nf:
+                    raise ValueError(
+                        f"encoding sequence pairs modality {int(k)} (width "
+                        f"{widths[int(k)]}) with encoder {int(e)} "
+                        f"(n_features {nf}); widths must match.")
+
+        if seqs is None:
+            check(order)
+            return
+        for row in np.asarray(seqs):
+            check(list(enumerate(row)))
+            if len({int(v) for v in row}) < len(row):
                 raise NotImplementedError(
-                    "per-batch encoding sequences need the scan or switch "
-                    "chain, which is not ported yet (ROADMAP.md Queue A, "
-                    "'Encoding orders')")
-            if encoder_sequence is None:
-                encoder_sequence = loader.encoding_sequence
+                    "per-batch encoding sequences with REPEATED "
+                    "encoders are not supported: the traced-order "
+                    "chains keep one metric row per encoder and cannot "
+                    "express the reference's per-execution accumulation "
+                    "(multimodn.py:171-192). Uniform repeated sequences "
+                    "work through the unrolled chain.")
+
+    def _resolve_order(self, loader=None, encoder_sequence=None,
+                       train: bool = False):
+        """The static ``((data_idx, enc_idx), ...)`` order: the loader's
+        (or the given) uniform sequence paired with modalities 0..L-1, else
+        the identity. In training on the unrolled chain, ``shuffle_mode``
+        shuffles it with the model's ``random.Random`` (once per call)."""
+        if encoder_sequence is None and loader is not None:
+            encoder_sequence = getattr(loader, "encoding_sequence", None)
         if encoder_sequence is None:
-            order = default_order(len(self.encoders))
+            order = list(default_order(len(self.encoders)))
         else:
             seq = np.asarray(encoder_sequence).reshape(-1)
-            order = tuple((int(k), int(e)) for k, e in enumerate(seq))
-        widths = None if loader is None else loader.modality_widths
-        if widths is not None:
-            for k, e in order:
-                nf = getattr(self.encoders[e], "n_features", None)
-                if nf is not None and widths[k] != nf:
-                    raise ValueError(
-                        f"encoding sequence pairs modality {k} (width "
-                        f"{widths[k]}) with encoder {e} (n_features {nf}); "
-                        "widths must match.")
-        return order
+            order = [(int(k), int(e)) for k, e in enumerate(seq)]
+        if self.shuffle_mode and train and \
+                self._chain_plan()[0] not in TRACED_CHAINS:
+            self._shuffle_rng.shuffle(order)
+        return tuple(order)
+
+    @staticmethod
+    def _batch_seqs(loader):
+        """The loader's per-batch orders, or None (a uniform sequence, none,
+        or a streaming loader)."""
+        fn = getattr(loader, "batch_sequences", None)
+        return fn() if fn is not None else None
+
+    @staticmethod
+    def _has_batch_seqs(loader) -> bool:
+        fn = getattr(loader, "has_per_batch_sequences", None)
+        return fn is not None and fn()
+
+    def _uniform_order(self, loader) -> tuple:
+        es = getattr(loader, "encoding_sequence", None)
+        return tuple(int(v) for v in np.asarray(es).reshape(-1)) \
+            if es is not None else tuple(range(len(self.encoders)))
+
+    def _loader_seqs(self, loader) -> np.ndarray:
+        """``(n_batches, L)`` orders for a traced run over ``loader``: its
+        per-batch sequences, or its uniform order (the identity without
+        one) in every batch; validated (``_validate_pairings``)."""
+        seqs = self._batch_seqs(loader)
+        if seqs is None:
+            seqs = np.tile(np.asarray(self._uniform_order(loader)),
+                           (loader.n_batches, 1))
+        self._validate_pairings((), loader, seqs)
+        return seqs
+
+    def _fused_per_batch(self, train_loader, val_loader) -> bool:
+        """Whether ``fit`` / ``fit_best`` run per-batch orders: a loader
+        carries per-batch sequences, or the train and val loaders carry
+        different uniform orders, which each keep (JAX ``_fused_seqs``,
+        ``model.py:368-425``)."""
+        if self._has_batch_seqs(train_loader) or (
+                val_loader is not None and self._has_batch_seqs(val_loader)):
+            return True
+        return val_loader is not None and \
+            self._uniform_order(train_loader) != \
+            self._uniform_order(val_loader)
+
+    def _forward_chain(self, order) -> str:
+        """The chain a forward pass of ``order`` runs (JAX ``_forward_fn``):
+        a repeated order runs unrolled where ``chain_mode`` allows it."""
+        chain = self._chain_plan()[0]
+        if chain in TRACED_CHAINS and has_repeated_encoders(order):
+            self._check_repeat_downgrade(for_eval=True)
+            chain = "unrolled"
+        return chain
+
+    def _forward(self, order, nan_skip):
+        return make_forward_fn(self.encoders, self.decoders, self.init_state,
+                               order, nan_skip, self._forward_chain(order))
+
+    def _batch_forwards(self, loader, nan_skip):
+        """An iterator of one forward function per batch of ``loader`` (its
+        own order for per-batch sequences), the pairings validated now."""
+        seqs = self._batch_seqs(loader)
+        order = self._resolve_order(loader)
+        self._validate_pairings(order, loader, seqs)
+        if seqs is None:
+            return itertools.repeat(self._forward(order, nan_skip))
+        return (self._forward(tuple(enumerate(int(e) for e in row)),
+                              nan_skip) for row in seqs)
 
     def _to_device(self, x: Sequence) -> tuple:
         return tuple(torch.as_tensor(np.asarray(m, np.float32)
@@ -210,8 +394,8 @@ class MultiModN:
     def _predict(self, x: Sequence, encoder_sequence):
         data = self._to_device(x)
         n = data[0].shape[0]
-        fwd = make_forward_fn(self.encoders, self.decoders, self.init_state,
-                              self._resolve_order(encoder_sequence), "none")
+        fwd = self._forward(self._resolve_order(None, encoder_sequence),
+                            "none")
         preds, outputs, _, _ = fwd(
             self.params, data, torch.ones((n,), device=self.device),
             init_offset=self._cycle_base())
@@ -222,12 +406,12 @@ class MultiModN:
     def _predict_loader(self, loader):
         """The no-skip forward over a loader's batches, padded rows
         dropped: ``(preds (E+1, D, N), outputs list of (E+1, N, C_d))``."""
-        fwd = make_forward_fn(self.encoders, self.decoders, self.init_state,
-                              self._resolve_order(loader=loader), "none")
+        forwards = self._batch_forwards(loader, "none")
         start = offset = self._cycle_base()
         preds, outs = [], []
         for (data, _targets, mask), n_real in self._batches(loader):
-            p, o, _, _ = fwd(self.params, data, mask, init_offset=offset)
+            p, o, _, _ = next(forwards)(self.params, data, mask,
+                                        init_offset=offset)
             offset += n_real
             preds.append(p[:, :, :n_real])
             outs.append([out[:, :n_real] for out in o])
@@ -238,6 +422,13 @@ class MultiModN:
                 [torch.cat([o[d] for o in outs], dim=1)
                  for d in range(len(self.decoders))])
 
+    @staticmethod
+    def _no_sequence_with_loader(encoder_sequence):
+        if encoder_sequence is not None:
+            raise ValueError(
+                "pass encoder sequences through the loader's dataset when "
+                "predicting from a loader")
+
     def predict(self, x, encoder_sequence=None) -> np.ndarray:
         """(E+1, D, N) argmax class predictions after every step, from
         per-modality arrays or a loader (batch by batch).
@@ -245,14 +436,18 @@ class MultiModN:
         NaN inputs are NOT skipped here, matching the reference's predict
         (quirk #9): a NaN flows through the encoder into the state."""
         if self._is_loader(x):
+            self._no_sequence_with_loader(encoder_sequence)
             return self._predict_loader(x)[0].cpu().numpy()
         return self._predict(x, encoder_sequence)[0].cpu().numpy()
 
     def predict_proba(self, x, encoder_sequence=None) -> List[np.ndarray]:
         """Per-decoder (E+1, N, C_d) raw decoder outputs after every step,
         with ``predict``'s no-skip semantics."""
-        outs = self._predict_loader(x)[1] if self._is_loader(x) \
-            else self._predict(x, encoder_sequence)[1]
+        if self._is_loader(x):
+            self._no_sequence_with_loader(encoder_sequence)
+            outs = self._predict_loader(x)[1]
+        else:
+            outs = self._predict(x, encoder_sequence)[1]
         return [o.cpu().numpy() for o in outs]
 
     @torch.no_grad()
@@ -289,13 +484,12 @@ class MultiModN:
         model's NaN skip and the padded rows dropped (reference
         ``multimodn.py:460-492``); a ``StaticInitState`` cycle advances by
         the loader's samples, as in every other call."""
-        fwd = make_forward_fn(self.encoders, self.decoders, self.init_state,
-                              self._resolve_order(loader=loader),
-                              self.nan_skip)
+        forwards = self._batch_forwards(loader, self.nan_skip)
         start = offset = self._cycle_base()
         states = []
         for (data, _targets, mask), n_real in self._batches(loader):
-            final = fwd(self.params, data, mask, init_offset=offset)[3]
+            final = next(forwards)(self.params, data, mask,
+                                   init_offset=offset)[3]
             offset += n_real
             states.append(final[mask > 0])
         self._advance_cycle(offset - start)
@@ -304,23 +498,25 @@ class MultiModN:
     # ------------------------------------------------------------------
     # Training / evaluation
     # ------------------------------------------------------------------
-    def _loss_fn(self, criterion, order):
-        return make_batch_loss_fn(
+    def _loss_fn(self, criterion, order, per_batch: bool = False):
+        """The batch loss on the planned chain (JAX ``model.py:260-289``):
+        a static order that repeats an encoder runs unrolled, per-batch
+        orders run a traced chain."""
+        chain, shuffle = self._chain_plan()
+        if not per_batch and chain in TRACED_CHAINS and \
+                has_repeated_encoders(order):
+            self._check_repeat_downgrade()
+            chain, shuffle = "unrolled", False
+        if per_batch and chain == "unrolled":
+            chain = "scan" if encoders_homogeneous(self.encoders) \
+                else "switch"
+        loss_fn = make_batch_loss_fn(
             self.encoders, self.decoders, self.init_state, criterion,
             self.err_penalty, self.state_change_penalty, order, self.nan_skip,
-            presence_dropout=self.presence_dropout,
-            presence_penalty=self.presence_penalty)
-
-    def _train_order(self, loader):
-        if self.presence_penalty and (self.shuffle_mode
-                                      or loader.has_per_batch_sequences()):
-            raise ValueError(STATIC_ORDER_MESSAGE)
-        if self.shuffle_mode:
-            raise NotImplementedError(
-                "shuffle_mode draws the modality order per batch in the scan "
-                "or switch chain, which is not ported yet (ROADMAP.md Queue "
-                "A, 'Encoding orders')")
-        return self._resolve_order(loader=loader)
+            chain, presence_dropout=self.presence_dropout,
+            presence_penalty=self.presence_penalty, shuffle=shuffle,
+            per_batch_seq=per_batch)
+        return loss_fn, shuffle
 
     def _use_optimizer(self, optimizer: Optimizer):
         """A new optimizer starts a new state; the same one continues."""
@@ -333,25 +529,64 @@ class MultiModN:
         return torch.Generator(device=self.device).manual_seed(
             self._seed * 1_000_003 + epoch)
 
-    def _train_pass(self, loader, optimizer, loss_fn, epoch: int):
-        """One training epoch; returns its grid sums and batch log on the
-        device and the batches run."""
+    def _order_perms(self, epoch: int, length: int):
+        """The per-batch order permutations of training epoch ``epoch`` on a
+        chain that shuffles: one ``torch.randperm(length)`` per batch from a
+        CPU generator keyed on the seed and the absolute epoch, so every
+        device draws the same orders and a resumed fit redraws them."""
+        gen = torch.Generator().manual_seed(
+            (self._seed + ORDER_FOLD) * 1_000_003 + epoch)
+        while True:
+            yield torch.randperm(length, generator=gen)
+
+    def _train_pass(self, loader, optimizer, plan, epoch: int):
+        """One training epoch of ``plan`` (``_plan_training``); returns its
+        grid sums and batch log on the device and the batches run."""
         loader.reshuffle()
+        seqs = self._loader_seqs(loader) if plan.per_batch else None
+        perms = None
+        if plan.shuffle:
+            perms = self._order_perms(
+                epoch, len(plan.order) if seqs is None else seqs.shape[1])
         start = self._cycle_base()
         self.opt_state, sums, batch_log, offset, n_batches = run_train_epoch(
-            loss_fn, optimizer, self.params, self.opt_state,
-            self._batches(loader), self._generator(epoch), start)
+            plan.loss_fn, optimizer, self.params, self.opt_state,
+            self._batches(loader), self._generator(epoch), start, seqs,
+            perms)
         self._advance_cycle(offset - start)
         return sums, batch_log, n_batches
 
-    def _eval_pass(self, loader, loss_fn):
+    def _eval_pass(self, loader, loss_fn, per_batch: bool = False):
         """One evaluation epoch: ``(grid sums, final-row outputs, targets,
         sample mask)`` on the device and the batches run."""
+        seqs = self._loader_seqs(loader) if per_batch else None
         start = self._cycle_base()
         sums, outputs, targets, mask, offset, n_batches = run_eval_epoch(
-            loss_fn, self.params, self._batches(loader), start)
+            loss_fn, self.params, self._batches(loader), start, seqs)
         self._advance_cycle(offset - start)
         return (sums, outputs, targets, mask), n_batches
+
+    def _plan_training(self, criterion, train_loader, val_loader=None,
+                       fused: bool = False) -> TrainingPlan:
+        """Resolve a training call's order and chain before it trains.
+        ``fused`` marks ``fit`` / ``fit_best``, which refuse the per-call
+        shuffle cadence and run per-batch orders when the train and val
+        orders differ."""
+        if fused:
+            self._validate_fused_shuffle()
+        order = self._resolve_order(train_loader, train=True)
+        if fused:
+            per_batch = self._fused_per_batch(train_loader, val_loader)
+        else:
+            per_batch = self._has_batch_seqs(train_loader)
+        if per_batch:
+            for ldr in (train_loader, val_loader):
+                if ldr is not None:
+                    self._loader_seqs(ldr)
+        if not self._has_batch_seqs(train_loader):
+            self._validate_pairings(order, train_loader)
+        loss_fn, shuffle = self._loss_fn(criterion, order, per_batch)
+        return TrainingPlan(loss_fn, shuffle, order, per_batch)
 
     def _stats(self, host_sums: dict, n_batches: int) -> dict:
         return {k: v.numpy() for k, v in epoch_reduction(
@@ -383,10 +618,10 @@ class MultiModN:
         history metrics."""
         if log_interval and not logger:
             logger = print
-        loss_fn = self._loss_fn(criterion, self._train_order(train_loader))
+        plan = self._plan_training(criterion, train_loader)
         self._use_optimizer(optimizer)
         sums, batch_log, n_batches = self._train_pass(
-            train_loader, optimizer, loss_fn, self._epoch_counter)
+            train_loader, optimizer, plan, self._epoch_counter)
         self._epoch_counter += 1
         sums, batch_log = to_host([sums, batch_log])
         stats = self._stats(sums, n_batches)
@@ -419,10 +654,12 @@ class MultiModN:
         if log_results and not logger:
             logger = print
         criterion = resolve_criterion(criterion)
-        loss_fn = self._loss_fn(criterion,
-                                self._resolve_order(loader=test_loader))
+        seqs = self._batch_seqs(test_loader)
+        order = self._resolve_order(test_loader)
+        self._validate_pairings(order, test_loader, seqs)
+        loss_fn, _ = self._loss_fn(criterion, order, seqs is not None)
         (sums, outputs, targets, mask), n_batches = self._eval_pass(
-            test_loader, loss_fn)
+            test_loader, loss_fn, seqs is not None)
         sums, outputs = to_host([sums, outputs])
         stats = self._stats(sums, n_batches)
         if log_results:
@@ -457,14 +694,16 @@ class MultiModN:
         ``val_loader`` is given; the history gets each epoch's grids, as
         looped ``train_epoch`` / ``test`` calls would give."""
         criterion = resolve_criterion(criterion)
-        loss_fn = self._loss_fn(criterion, self._train_order(train_loader))
+        plan = self._plan_training(criterion, train_loader, val_loader,
+                                   fused=True)
         self._use_optimizer(optimizer)
         for e in range(epochs):
             tsums, _, n_train = self._train_pass(
-                train_loader, optimizer, loss_fn, self._epoch_counter + e)
+                train_loader, optimizer, plan, self._epoch_counter + e)
             sums = [tsums]
             if val_loader is not None:
-                (vsums, *_), n_val = self._eval_pass(val_loader, loss_fn)
+                (vsums, *_), n_val = self._eval_pass(
+                    val_loader, plan.loss_fn, plan.per_batch)
                 sums.append(vsums)
             if history is not None:
                 sums = to_host(sums)
@@ -527,7 +766,8 @@ class MultiModN:
         if patience is not None and patience < 1:
             raise ValueError(f"patience must be >= 1, got {patience}")
         criterion = resolve_criterion(criterion)
-        loss_fn = self._loss_fn(criterion, self._train_order(train_loader))
+        plan = self._plan_training(criterion, train_loader, val_loader,
+                                   fused=True)
         self._use_optimizer(optimizer)
         score_fn = make_selection_score(binary)
         if resume is None:
@@ -538,9 +778,9 @@ class MultiModN:
         since, train_sums, val_sums = 0, [], []
         for e in range(len(scores), epochs):
             tsums, _, n_train = self._train_pass(
-                train_loader, optimizer, loss_fn, self._epoch_counter + e)
+                train_loader, optimizer, plan, self._epoch_counter + e)
             (vsums, outputs, vtargets, vmask), n_val = self._eval_pass(
-                val_loader, loss_fn)
+                val_loader, plan.loss_fn, plan.per_batch)
             tsums, vsums, score = to_host(
                 [tsums, vsums, score_fn(outputs, vtargets, vmask)])
             train_sums.append(tsums)
@@ -592,6 +832,10 @@ class MultiModN:
 
     def __setstate__(self, state):
         self.__dict__.update(state)
+        # Models pickled before the order options existed ran unrolled.
+        self.__dict__.setdefault("chain_mode", "unrolled")
+        self.__dict__.setdefault("scan_unroll", None)
+        self.__dict__.setdefault("_shuffle_rng", random.Random(self._seed))
         self.params = params_from_jax(self.params, self.device)
 
     def state_dict(self) -> dict:

@@ -20,6 +20,7 @@ import torch
 
 from multimodn_tpu_torch import decoders as dec_mod
 from multimodn_tpu_torch import encoders as enc_mod
+from multimodn_tpu_torch.convert import stack_encoders
 from multimodn_tpu_torch.core.nn import activation_name
 from multimodn_tpu_torch.core.state import StaticInitState
 from multimodn_tpu_torch.model import MultiModN
@@ -143,15 +144,15 @@ def export_model(model: MultiModN, directory: str) -> str:
         # The constructor re-applies the 0.01 factor (quirk #1).
         "state_change_penalty": model.state_change_penalty / 0.01,
         "nan_skip": model.nan_skip,
-        # Per-encoder parameter storage, which the JAX package's unrolled
-        # chain reads (its 'auto' may pick the scan chain's stacked one).
-        "chain_mode": "unrolled",
+        # The JAX package reads per-encoder parameter storage under any
+        # chain_mode (it stacks them itself for its scan chain).
+        "chain_mode": model.chain_mode,
         "shuffle_mode": model.shuffle_mode,
         "ones_initialized_counts": model.ones_initialized_counts,
         "presence_penalty": model.presence_penalty,
         "presence_dropout": model.presence_dropout,
         "compute_dtype": None,
-        "scan_unroll": None,
+        "scan_unroll": model.scan_unroll,
         "seed": model._seed,
         "encoders": [_module_spec(e) for e in model.encoders],
         "decoders": [_module_spec(d) for d in model.decoders],
@@ -159,7 +160,12 @@ def export_model(model: MultiModN, directory: str) -> str:
     }
     with open(os.path.join(directory, "config.json"), "w") as f:
         json.dump(config, f, indent=2)
-    flat = dict(_flatten_with_paths(model.state_dict()))
+    params = model.state_dict()
+    if model._chain_plan()[0] == "scan":
+        # The JAX package stores a scan-planned model's encoders stacked,
+        # and reads an artifact into that layout.
+        params["encoders"] = stack_encoders(params["encoders"])
+    flat = dict(_flatten_with_paths(params))
     if static:
         flat[STATIC_BANK_KEY] = model.init_state.bank()
     np.savez(os.path.join(directory, "params.npz"), **flat)
@@ -222,6 +228,8 @@ def load_model(directory: str, device=None) -> MultiModN:
         seed=config.get("seed", 0),
         presence_dropout=config.get("presence_dropout", 0.0),
         presence_penalty=config.get("presence_penalty", 0.0),
+        chain_mode=config.get("chain_mode", "auto"),
+        scan_unroll=config.get("scan_unroll"),
         device=device,
     )
     model.load_state_dict(_unflatten(flat))

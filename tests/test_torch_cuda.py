@@ -4,7 +4,8 @@ fused chain (K1, at the MIMIC, small and Titanic shapes) and the fused
 recurrent encoders, ``SGD`` and ``AdamW``, and two Titanic pipelines; and
 streamed batches (pinned, copied one ahead) and a killed and resumed
 ``Adam8bit`` fit on the card, bit-equal to their ArrayLoader and
-uninterrupted twins.
+uninterrupted twins; shuffled and sequenced training on the card against
+the CPU, and K2's launches at a featurewise chain's leaf count.
 
 Every test here carries the ``cuda`` marker and skips without a GPU. The
 file imports neither JAX nor the JAX package, so it runs on a GPU machine
@@ -678,3 +679,88 @@ def test_fit_best_resumable_on_cuda_kill_and_resume(cuda, tmp_path):
     np.testing.assert_array_equal(got["scores"], want["scores"])
     _same_bits(one.params, revived.params)
     _same_bits(one.opt_state, revived.opt_state)
+
+
+def _sequenced(X, y, widths, batch, seed):
+    """A dataset whose every batch of ``batch`` rows carries its own
+    permutation of the encoders."""
+    rng = np.random.default_rng(seed)
+    per_batch = [rng.permutation(len(widths))
+                 for _ in range(-(-len(X) // batch))]
+    seqs = np.stack([per_batch[i // batch] for i in range(len(X))])
+
+    class Sequenced(PartitionDataset):
+        def arrays(self):
+            xs, t, _ = super().arrays()
+            return xs, t, seqs
+
+    return Sequenced(X, y, list(widths))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["shuffle_scan", "shuffle_switch",
+                                  "sequences"])
+def test_encoding_orders_train_on_cuda_like_cpu(cuda, case):
+    """``Adam8bit`` steps with a fresh order per batch (the scan chain for
+    identical encoders, the switch chain for mixed ones; both devices draw
+    the same permutations) and with per-batch dataset sequences, on the
+    card and the CPU: K2 once per step, parameters within 3 lr (a
+    near-zero gradient's Adam step may go the other way on either
+    device)."""
+    if case == "shuffle_scan":
+        widths = (3, 3, 3, 3)
+
+        def make(device):
+            return MultiModN(6, [tenc.MIMICMLPEncoder(6, 3, (8,), 0.0)
+                                 for _ in widths],
+                             [tdec.MLPDecoder(6, (8,), 2)], 1.0, 0.3, seed=2,
+                             shuffle_mode=True, device=device)
+    else:
+        widths = (3, 3, 3) if case == "sequences" else (3, 5, 4)
+
+        def make(device):
+            encs = [tenc.MIMICMLPEncoder(6, widths[0], (8,), 0.0),
+                    tenc.MLPEncoder(6, widths[1], (8,)),
+                    tenc.MIMICMLPEncoder(6, widths[2], (5,), 0.0)]
+            return MultiModN(6, encs, [tdec.MLPDecoder(6, (8,), 2)], 1.0,
+                             0.3, seed=2, shuffle_mode=case != "sequences",
+                             device=device)
+    rng = np.random.default_rng(5)
+    X = rng.normal(size=(24, sum(widths))).astype(np.float32)
+    X[::4, :widths[0]] = np.nan
+    y = (X[:, -1:] > 0).astype(np.int64)
+    ds = _sequenced(X, y, widths, 8, 6) if case == "sequences" else \
+        PartitionDataset(X, y, list(widths))
+    gpu, cpu = make(cuda), make("cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    before = fa.FUSED_ADAM.launches
+    for m in (gpu, cpu):
+        m.train_epoch(ArrayLoader(ds, 8), Adam8bit(0.01), "cross_entropy")
+    torch.cuda.synchronize()
+    assert fa.FUSED_ADAM.launches - before == 3
+    err = max(float(np.abs(a - b).max()) for a, b in zip(
+        tree_leaves(gpu.state_dict()), tree_leaves(cpu.state_dict())))
+    assert err <= 3 * 0.01
+
+
+@pytest.mark.cuda
+def test_featurewise_adam8bit_launches_follow_the_leaf_table(cuda):
+    """A featurewise chain of 100 one-feature encoders (per-encoder storage,
+    401 leaves) trained with ``shuffle_mode``: K2 launches per step equal
+    ``launches_per_update`` of the leaf shapes."""
+    model = MultiModN(8, [tenc.MLPFeatureEncoder(8, 4) for _ in range(100)],
+                      [tdec.MLPDecoder(8, (4,), 2)], 1.0, 0.3, seed=1,
+                      shuffle_mode=True, device=cuda)
+    assert model._chain_plan() == ("scan", True)
+    shapes = [tuple(t.shape) for t in tree_leaves(model.params)]
+    per_step = fa.launches_per_update(shapes)
+    assert per_step == -(-len(shapes) // fa.MAX_LEAVES) > 1
+    rng = np.random.default_rng(2)
+    X = rng.normal(size=(32, 100)).astype(np.float32)
+    X[rng.random(X.shape) < 0.1] = np.nan
+    y = (np.nansum(X[:, :5], 1) > 0).astype(np.int64)
+    before = fa.FUSED_ADAM.launches
+    model.train_epoch(ArrayLoader(PartitionDataset(X, y, [1] * 100), 16),
+                      Adam8bit(0.01), "cross_entropy")
+    torch.cuda.synchronize()
+    assert fa.FUSED_ADAM.launches - before == 2 * per_step

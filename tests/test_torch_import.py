@@ -86,6 +86,63 @@ def test_cpu_training_needs_neither_jax_nor_pandas():
     assert proc.stdout.strip() == "ok"
 
 
+def test_encoding_orders_train_without_jax():
+    """The traced chains (``core/scan_chain.py``) load and train without
+    JAX or the JAX package: ``shuffle_mode`` on the scan and switch chains,
+    per-batch dataset sequences and a repeated static order, on the
+    CPU."""
+    script = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["multimodn_tpu"] = None
+        import numpy as np
+        import multimodn_tpu_torch as pkg
+        from multimodn_tpu_torch.core import scan_chain
+        from multimodn_tpu_torch import encoders, decoders
+        from multimodn_tpu_torch.data import ArrayLoader, PartitionDataset
+        rng = np.random.default_rng(0)
+        X = rng.normal(size=(24, 9)).astype(np.float32)
+        X[::4, :3] = np.nan
+        y = (X[:, 4] > 0).astype(np.int64)
+        seqs = np.repeat(np.stack([rng.permutation(3) for _ in range(3)]),
+                         8, axis=0)
+
+        class Sequenced(PartitionDataset):
+            def arrays(self):
+                xs, t, _ = super().arrays()
+                return xs, t, seqs
+
+        def model(encs, **kw):
+            return pkg.MultiModN(4, encs, [decoders.MLPDecoder(4, (5,), 2)],
+                                 1.0, 0.1, device="cpu", **kw)
+
+        same = lambda: [encoders.MIMICMLPEncoder(4, 3, (5,)) for _ in "abc"]
+        mixed = lambda: [encoders.MIMICMLPEncoder(4, 3, (5,)),
+                         encoders.MLPEncoder(4, 3, (5,)),
+                         encoders.MIMICMLPEncoder(4, 3, (6,))]
+        plain = ArrayLoader(PartitionDataset(X, y, [3, 3, 3]), 8)
+        runs = [(model(same(), shuffle_mode=True), plain, "scan"),
+                (model(mixed(), shuffle_mode=True), plain, "switch"),
+                (model(mixed()), ArrayLoader(Sequenced(X, y, [3, 3, 3]), 8),
+                 "unrolled")]
+        for m, loader, chain in runs:
+            assert m._chain_plan()[0] == chain
+            h = pkg.MultiModNHistory(["y"])
+            m.fit(loader, pkg.Adam8bit(0.01), epochs=2, history=h)
+            assert np.isfinite(h.loss["train"][-1]).all()
+        states = runs[2][0].predict([X[:, :3]] * 3, encoder_sequence=[1, 1])
+        assert states.shape == (4, 1, 24)
+        leaked = sorted(k for k in sys.modules
+                        if k.startswith("multimodn_tpu.") or k == "jax.numpy")
+        assert not leaked, leaked
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_mimic_pipelines_run_without_jax_pandas_or_sklearn(tmp_path):
     """One epoch of each of the port's three MIMIC pipelines on the CPU at
     a tiny size, in a process where importing jax, the JAX package, pandas

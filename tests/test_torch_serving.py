@@ -241,6 +241,12 @@ def test_model_checks_match_jax():
                       presence_penalty=0.1, device="cpu")
     m = tmm.MultiModN(4, enc, [], 1, 3, device="cpu")
     assert m.state_change_penalty == pytest.approx(0.03)   # quirk #1
-    with pytest.raises(NotImplementedError, match="repeat an encoder"):
-        m.predict([np.zeros((2, 3), np.float32)] * 2,
-                  encoder_sequence=[0, 0])
+    # A repeated order cannot run on an explicit traced chain, in either
+    # package (it runs unrolled under chain_mode='auto').
+    x = [np.zeros((2, 3), np.float32)] * 2
+    for mm, e, d, kw in ((tmm, tenc, tdec, {"device": "cpu"}),
+                         (jmm, jenc, jdec, {})):
+        scan = mm.MultiModN(4, [e.MLPEncoder(4, 3)], [d.LogisticDecoder(4)],
+                            1, 0, chain_mode="scan", **kw)
+        with pytest.raises(ValueError, match="REPEATED"):
+            scan.predict(x, encoder_sequence=[0, 0])

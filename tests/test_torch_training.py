@@ -402,10 +402,13 @@ def test_unported_training_options_raise():
     _, tl = _loaders(X, y, SMALL_WIDTHS)
     encs = [tenc.MIMICMLPEncoder(SMALL_S, w, (8,)) for w in SMALL_WIDTHS]
     decs = [tdec.LogisticDecoder(SMALL_S)]
-    for kw in ({"shuffle_mode": True},):
+    # shuffle_mode's per-call cadence (an explicit unrolled chain) cannot
+    # redraw per epoch inside fit, so fit refuses it, as the JAX package's
+    # _validate_fused_shuffle does.
+    for kw in ({"shuffle_mode": True, "chain_mode": "unrolled"},):
         tm = tmm.MultiModN(SMALL_S, encs, decs, 1.0, 0.0, device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tm.train_epoch(tl, tmm.Adam(0.01))
+        with pytest.raises(NotImplementedError, match="per-call"):
+            tm.fit(tl, tmm.Adam(0.01))
         assert tm.opt_state is None
 
 
