@@ -6,10 +6,12 @@
     python3 chip_smoke.py --protocol-only --stream-folds --patients 6485 --epochs 2
     python3 chip_smoke.py --mnar-only --epochs 10
     python3 chip_smoke.py --orders-only
+    python3 chip_smoke.py --dropin-only
 
 The first form is the smoke run; the second times phase 8 alone at another
 data size and depth, the third with every fold's batches streamed; the
-fourth runs the MNAR protocol grid alone, the fifth phase 13 alone.
+fourth runs the MNAR protocol grid alone, the fifth phase 13 alone, the
+sixth phase 14 alone.
 Phases, each fatal on failure:
 
 1. the card's name and power limit, torch and CUDA versions; TF32 off;
@@ -135,13 +137,29 @@ Phases, each fatal on failure:
    and ``predict_proba`` against the CPU; and K2 on those leaves held bit
    for bit against its plain version (every one of its launches), then
    timed beside it and its bytes bound;
-14. the earlier designs' times from PERF.md on a line of their own, the
-   ``mnar``, ``transformer``, ``resume`` and ``orders`` lines, one
-   ``{"kernels": [...]}`` line of this run's numbers (launches summed over
-   every path that ran the kernel, by phase in ``launches_by_phase``; K1's
-   with ``titanic``, ``mnar``, ``resumed`` and ``orders`` blocks, K2's with
-   ``resume`` and ``orders`` blocks), the script's wall time, the card's
-   line, and last the ``{"ok": true, ...}`` line.
+14. the drop-in torch surface: the reference-idiom quick-start
+   (``multimodn_tpu_torch/compat/examples/titanic_mlp_pipeline.py``: the
+   reference's import paths, ``torch.optim.Adam`` over
+   ``model.parameters()``, ``nn.CrossEntropyLoss()``, ``DataLoader``s, an
+   ``F.relu`` encoder) through ``compat.run_script`` for 20 epochs with
+   ``-p false``, its pickled model on the card, its loss falling and its
+   results CSV written; the MIMIC model at full width trained 3 epochs with
+   ``torch.optim.Adam``, a shuffled ``DataLoader`` and
+   ``nn.CrossEntropyLoss()``, by ``train_epoch`` + ``test`` and by
+   ``fit_best``, each bit-equal (parameters, Adam state, history, selection)
+   to the same run with the port's ``Adam`` and ``ArrayLoader``, with
+   steps/s of both; no kernel launched while training; then the
+   torch-trained MIMIC model and the quick-start model through
+   ``export_model`` -> ``load_model``, each serving 8 requests of 16 rows
+   with NaN rows through K1 (launches = requests x the plan's, 2 at MIMIC
+   width) against the plain chain;
+15. the earlier designs' times from PERF.md on a line of their own, the
+   ``mnar``, ``transformer``, ``resume``, ``orders`` and ``dropin`` lines,
+   one ``{"kernels": [...]}`` line of this run's numbers (launches summed
+   over every path that ran the kernel, by phase in ``launches_by_phase``;
+   K1's with ``titanic``, ``mnar``, ``resumed``, ``orders`` and ``dropin``
+   blocks, K2's with ``resume`` and ``orders`` blocks), the script's wall
+   time, the card's line, and last the ``{"ok": true, ...}`` line.
 
 ``--mnar-only`` runs phase 1 and the MNAR protocol grid alone at the
 published cohort scale (300 patients, 5 folds) for ``batch``, ``sample``
@@ -428,14 +446,15 @@ def check_kernel(name, model, batches, gen):
     return records
 
 
-def serving_requests(seed=0):
-    """8 requests of batch 16; some rows have a NaN modality (whole row or
-    a single entry) so the per-sample skip is exercised."""
+def serving_requests(seed=0, widths=MIMIC_WIDTHS):
+    """8 requests of batch 16 over modalities of ``widths``; some rows have
+    a NaN modality (whole row or a single entry) so the per-sample skip is
+    exercised."""
     rng = np.random.default_rng(seed)
     requests = []
     for r in range(SERVING_REQUESTS):
         x = [rng.normal(size=(SERVING_BATCH, w)).astype(np.float32)
-             for w in MIMIC_WIDTHS]
+             for w in widths]
         if r % 2 == 0:
             for e in range(len(x)):
                 rows = rng.choice(SERVING_BATCH, size=3, replace=False)
@@ -2332,6 +2351,190 @@ def run_orders(device):
             "mimic_s": mimic_s, "featurewise_s": featurewise_s}
 
 
+# Phase 14: the drop-in torch surface. (a) The reference-idiom quick-start
+# (compat/examples/titanic_mlp_pipeline.py: torch Adam over
+# model.parameters(), nn.CrossEntropyLoss, DataLoaders, an F.relu encoder)
+# through compat.run_script on the card; (b) the MIMIC model at full width
+# trained with torch.optim.Adam, a shuffled DataLoader and
+# nn.CrossEntropyLoss by train_epoch + test and by fit_best, each bit-equal
+# to the same run with the port's Adam and ArrayLoader; (c) the torch-trained
+# MIMIC model and the F.relu-built quick-start model served through K1.
+DROPIN_EPOCHS = 20
+DROPIN_SCRIPT = os.path.join(ROOT, "multimodn_tpu_torch", "compat",
+                             "examples", "titanic_mlp_pipeline.py")
+
+
+def dropin_quickstart(device, work):
+    """(a): the body for 20 epochs with ``-p false`` (no matplotlib on the
+    card); its model, built without a device, must land on ``device``, the
+    card. Returns the record and the pickled model."""
+    from multimodn_tpu_torch import compat
+    from multimodn_tpu_torch.core.nn import activation_name
+    from multimodn_tpu_torch.pipelines.titanic import common
+    path = os.path.join(work, os.path.basename(DROPIN_SCRIPT))
+    shutil.copy(DROPIN_SCRIPT, path)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    compat.run_script(path, ["-e", str(DROPIN_EPOCHS), "-p", "false"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    loaded = []
+    for name in ("titanic_mlp_model.pkl", "titanic_mlp_history.pkl"):
+        with open(os.path.join(work, "models", name), "rb") as f:
+            loaded.append(pickle.load(f))
+    model, history = loaded
+    if model.device.type != device.type or not all(
+            t.device.type == device.type for t in tree_leaves(model.params)):
+        raise AssertionError(f"quick-start body: model on {model.device}")
+    if activation_name(model.encoders[0].activation) != "relu":
+        raise AssertionError("quick-start body: F.relu did not map to relu")
+    losses = mean_losses(history, "train")
+    if len(losses) != DROPIN_EPOCHS or not np.isfinite(
+            losses + mean_losses(history, "val")).all() or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"quick-start body: train losses {losses}")
+    with open(os.path.join(work, "results", "titanic_mlp.csv"),
+              newline="") as f:
+        rows = list(csv.reader(f))
+    if rows[0][0] != "Target" or len(rows) != 2:
+        raise AssertionError(f"quick-start body: results CSV {rows[:2]}")
+    cfg = titanic_pipeline("titanic_mlp").CONFIG
+    train, _val, _ = common.split(cfg, 0)
+    steps = DROPIN_EPOCHS * common.loader(cfg, train).n_batches
+    r = {"epochs": DROPIN_EPOCHS, "wall_s": wall, "steps": steps,
+         "steps_per_s": steps / wall, "first_train_loss": losses[0],
+         "last_train_loss": losses[-1],
+         "last_val_loss": mean_losses(history, "val")[-1],
+         "device": str(model.device)}
+    log(f"  reference-idiom quick-start through run_script: {json.dumps(r)}")
+    return r, model
+
+
+def dropin_mimic_run(device, torch_objects, loop, train_set, val_set):
+    """One 3-epoch run of the MIMIC model: torch objects or the port's own,
+    by a train_epoch + test loop or by fit_best; wall time synchronised."""
+    import torch.nn as nn
+    import torch.utils.data as tud
+    model = mimic_model(device)
+    if torch_objects:
+        optimizer = torch.optim.Adam(list(model.parameters()), ADAM_LR)
+        train = tud.DataLoader(train_set, TRAIN_BATCH, shuffle=True)
+        val = tud.DataLoader(val_set, TRAIN_BATCH)
+        criterion = nn.CrossEntropyLoss()
+    else:
+        optimizer = Adam(ADAM_LR)
+        train = ArrayLoader(train_set, TRAIN_BATCH, shuffle=True, seed=0)
+        val = ArrayLoader(val_set, TRAIN_BATCH)
+        criterion = "cross_entropy"
+    history = MultiModNHistory([f"t{d}" for d in range(MIMIC_TARGETS)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    info = None
+    if loop:
+        for _ in range(TRAIN_EPOCHS):
+            model.train_epoch(train, optimizer, criterion, history)
+            model.test(val, criterion, history, tag="val")
+    else:
+        info = model.fit_best(train, optimizer, criterion,
+                              epochs=TRAIN_EPOCHS, val_loader=val,
+                              history=history)
+    torch.cuda.synchronize()
+    return model, history, info, time.perf_counter() - t0
+
+
+def history_mismatches(a, b) -> int:
+    """History arrays (every metric and tag, the state change) that are not
+    bit-equal."""
+    pairs = [(x, y) for f in ("loss", "accuracy", "sensitivity",
+                              "specificity", "balanced_accuracy")
+             for tag in getattr(b, f)
+             for x, y in zip(getattr(a, f).get(tag, []), getattr(b, f)[tag])]
+    pairs += list(zip(a.state_change_loss, b.state_change_loss))
+    return sum(not np.array_equal(x, y, equal_nan=True) for x, y in pairs)
+
+
+def dropin_mimic(device):
+    """(b): for the loop and for fit_best, the torch-object run against the
+    native one (torch, native, native, torch), parameters, history and
+    selection bit for bit; steps/s of each (validation passes included)."""
+    _ds, train_set, val_set = mimic_training_loaders()
+    steps = TRAIN_EPOCHS * -(-TRAIN_SAMPLES // TRAIN_BATCH)
+    runs = {}
+    for label, torch_objects, loop in (
+            ("loop_torch", True, True), ("loop_native", False, True),
+            ("fit_best_native", False, False),
+            ("fit_best_torch", True, False)):
+        runs[label] = dropin_mimic_run(device, torch_objects, loop,
+                                       train_set, val_set)
+    out = {"steps": steps}
+    for kind in ("loop", "fit_best"):
+        (tm, th, ti, tw), (nm, nh, ni, nw) = runs[f"{kind}_torch"], \
+            runs[f"{kind}_native"]
+        bad = bit_mismatches(tm, nm)
+        bad_hist = history_mismatches(th, nh)
+        same_selection = ti is None or (
+            np.array_equal(ti["scores"], ni["scores"])
+            and ti["best_epoch"] == ni["best_epoch"])
+        losses = mean_losses(th, "train")
+        r = {"torch_steps_per_s": steps / tw, "native_steps_per_s":
+             steps / nw, "torch_wall_s": tw, "native_wall_s": nw,
+             "mismatching_elements": bad, "mismatching_history_arrays":
+             bad_hist, "train_losses": losses}
+        if ti is not None:
+            r.update(best_epoch=ti["best_epoch"],
+                     best_score=ti["best_score"])
+        log(f"  MIMIC {kind}, torch objects against the port's: "
+            f"{json.dumps(r)}")
+        if bad or bad_hist or not same_selection:
+            raise AssertionError(
+                f"MIMIC {kind}: torch objects differ from the port's own "
+                f"({bad} elements, {bad_hist} history arrays, selection "
+                f"equal {same_selection})")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"MIMIC {kind}: train losses {losses}")
+        out[kind] = r
+    return out, runs["loop_torch"][0]
+
+
+def run_dropin(device):
+    """Phase 14."""
+    if foreign_modules():
+        raise AssertionError(f"loaded before phase 14: {foreign_modules()}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_dropin_")
+    try:
+        torch.cuda.synchronize()
+        FUSED_CHAIN.launches = FUSED_ADAM.launches = 0
+        quick, quick_model = dropin_quickstart(device, work)
+        mimic, mimic_model_trained = dropin_mimic(device)
+        torch.cuda.synchronize()
+        if (FUSED_CHAIN.launches, FUSED_ADAM.launches) != (0, 0):
+            raise AssertionError(
+                f"torch-object training launched the fused kernels "
+                f"{(FUSED_CHAIN.launches, FUSED_ADAM.launches)} times; it "
+                f"runs the plain chain and Adam")
+        served = {}
+        for label, name, model, requests in (
+                ("MIMIC, torch-trained", "dropin_mimic", mimic_model_trained,
+                 serving_requests(seed=14)),
+                ("S=1, MLPEncoder(1, 6, (5, 5), F.relu)", "dropin_titanic",
+                 quick_model, serving_requests(seed=15, widths=(6,)))):
+            loaded = export_and_load(model, os.path.join(work, "export",
+                                                         name), device, name)
+            r = serve_trained(name, loaded, requests, device)
+            log(f"  K1 serving the {label} model: {json.dumps(r)}")
+            served[label] = r
+        mimic_served = served["MIMIC, torch-trained"]
+        if mimic_served["launches_per_request"] != 2:
+            raise AssertionError(f"K1 plan at MIMIC width: "
+                                 f"{mimic_served['launches_per_request']} "
+                                 f"launches per request")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if foreign_modules():
+        raise AssertionError(f"loaded by phase 14: {foreign_modules()}")
+    return {"quickstart": quick, "mimic": mimic, "served": served}
+
+
 def build_kernels():
     """Build every kernel library at once (one nvcc per source)."""
     with ThreadPoolExecutor(max_workers=2) as pool:
@@ -2370,6 +2573,9 @@ def parse_args(argv=None):
     p.add_argument("--orders-only", action="store_true",
                    help="run phases 1, 2 and 13 (encoding orders) only and "
                         "end with the orders line (no ok line)")
+    p.add_argument("--dropin-only", action="store_true",
+                   help="run phases 1, 2 and 14 (the drop-in torch surface) "
+                        "only and end with the dropin line (no ok line)")
     p.add_argument("--resume-child", nargs=2, metavar=("KIND", "DIR"),
                    help=argparse.SUPPRESS)
     return p.parse_args(argv)
@@ -2431,6 +2637,12 @@ def main(argv=None) -> int:
         log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
         log(card)
         return 0
+    if args.dropin_only:
+        log("== phase 14: drop-in torch surface")
+        log("dropin: " + json.dumps(run_dropin(device)))
+        log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
+        log(card)
+        return 0
 
     log("== phase 3: kernel against plain")
     log(f"tolerance {TOL:g}: {TOL_REASON}")
@@ -2477,12 +2689,17 @@ def main(argv=None) -> int:
     log("== phase 13: encoding orders")
     log(card_line())
     orders = run_orders(device)
+
+    log("== phase 14: drop-in torch surface")
+    log(card_line())
+    dropin = run_dropin(device)
     k1_by_phase = {
         "4": launches,
         "9": sum(r["launches"] for r in titanic["served"].values()),
         "10": mnar_served["launches"],
         "12": resume["served"]["launches"],
-        "13": orders["mimic"]["served"]["launches"]}
+        "13": orders["mimic"]["served"]["launches"],
+        "14": sum(r["launches"] for r in dropin["served"].values())}
     k2_by_phase = {
         "6": runs["Adam8bit"]["launches"],
         "12": sum(resume["resume"][kind]["k2_launches"]
@@ -2528,6 +2745,10 @@ def main(argv=None) -> int:
             "pipeline", "requests", "launches", "launches_per_request",
             "max_abs_err", "batch", "ms", "plain_ms", "bound_ms",
             "bound_by")},
+        "dropin": {label: {k: r[k] for k in (
+            "pipeline", "requests", "launches", "launches_per_request",
+            "max_abs_err", "batch", "ms", "plain_ms", "bound_ms",
+            "bound_by")} for label, r in dropin["served"].items()},
     }
     step = adam["times"]["mimic_step"]
     adam_entry = {
@@ -2579,6 +2800,7 @@ def main(argv=None) -> int:
     log("resume: " + json.dumps({k: resume[k] for k in (
         "resume", "disk", "pipelines", "payload_write", "rates")}))
     log("orders: " + json.dumps(orders))
+    log("dropin: " + json.dumps(dropin))
     log(json.dumps({"kernels": [entry, adam_entry]}))
     log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
     log(card)

@@ -23,10 +23,18 @@ or scikit-learn; resumable fits (``checkpoint.fit_resumable``,
 ``fit_best_resumable``, ``CheckpointManager``) and the streaming and disk
 loaders (``data.streaming``, ``data.disk`` over the native reader of
 ``data.native``), which the MIMIC pipelines' ``resume_dir`` and
-``stream_folds`` use.
+``stream_folds`` use; the drop-in torch surface: torch ``Adam`` /
+``AdamW`` / ``SGD``, loss modules and ``DataLoader`` at every entry point
+(``interop``), ``MultiModN.parameters()``, and the reference's import paths
+(``multimodn.*``, ``datasets.*``, ``pipelines.utils``) under
+``compat.reference_paths`` / ``compat.run_script``.
 """
 from multimodn_tpu_torch.convert import opt_state_from_jax, params_from_jax
 from multimodn_tpu_torch.core.history import MultiModNHistory
+from multimodn_tpu_torch.core.losses import CrossEntropyLoss, \
+    cross_entropy_loss
+from multimodn_tpu_torch.core.metrics import get_performance_metrics, \
+    performance_metrics
 from multimodn_tpu_torch.core.state import (
     InitState,
     StaticInitState,
@@ -48,6 +56,10 @@ __all__ = [
     "InitState",
     "TrainableInitState",
     "StaticInitState",
+    "cross_entropy_loss",
+    "CrossEntropyLoss",
+    "get_performance_metrics",
+    "performance_metrics",
     "Optimizer",
     "Adam",
     "Adam8bit",

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from multimodn_tpu_torch.core.tree import tree_leaves, tree_map
+from multimodn_tpu_torch.interop import adapt_loader, adapt_optimizer
 
 
 def _to_numpy(tree):
@@ -340,7 +341,13 @@ def fit_resumable(model, train_loader, optimizer, criterion=None, *,
     and neither may be a shuffled streaming loader (its permutation lives in
     the host loader, or its torch sampler, and is not in the payload).
 
+    A torch optimizer or ``DataLoader`` is mapped onto the port's
+    (``interop``), as in ``fit``.
+
     Returns ``(history, epochs run by this call)``."""
+    train_loader, val_loader = adapt_loader(train_loader), \
+        adapt_loader(val_loader)
+    optimizer = adapt_optimizer(optimizer)
     streaming = hasattr(train_loader, "iter_batches")
     if val_loader is not None and \
             hasattr(val_loader, "iter_batches") != streaming:
@@ -394,13 +401,18 @@ def fit_best_resumable(model, train_loader, optimizer, criterion=None, *,
     absolute epoch, so a killed and resumed run equals one ``fit_best`` call
     bit for bit, with dropout and a shuffled train ``ArrayLoader`` too. A
     checkpoint that has trained more than ``epochs`` is refused. Streaming
-    loaders resume through ``fit_best_streaming(checkpoint_dir=)``.
+    loaders resume through ``fit_best_streaming(checkpoint_dir=)``. A torch
+    optimizer or ``DataLoader`` is mapped onto the port's (``interop``), as
+    in ``fit_best``.
 
     Returns ``{"best_epoch", "best_score", "best_params", "scores",
     "history", "epochs_run"}``; with ``restore_best`` the model's parameters
     become the global best epoch's."""
     if val_loader is None:
         raise ValueError("fit_best_resumable requires a val_loader")
+    train_loader, val_loader = adapt_loader(train_loader), \
+        adapt_loader(val_loader)
+    optimizer = adapt_optimizer(optimizer)
     if any(hasattr(ldr, "iter_batches") for ldr in (train_loader,
                                                      val_loader)):
         raise TypeError(

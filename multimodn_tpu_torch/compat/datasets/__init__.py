@@ -1,0 +1,8 @@
+"""Reference path ``datasets``."""
+from multimodn_tpu_torch.data.dataset import (  # noqa: F401
+    FeatureWiseDataset,
+    JointDatasets,
+    MultiModDataset,
+    PartitionDataset,
+    Subset,
+)

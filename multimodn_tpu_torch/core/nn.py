@@ -110,10 +110,24 @@ ACTIVATIONS = {
 
 
 def resolve_activation(act):
-    """Registry name, registry function, None (identity) or any callable."""
+    """Registry name, registry function, None (identity) or any callable.
+
+    A torch function (reference pipelines pass ``F.relu``,
+    ``titanic_mlp_pipeline.py:69``) maps by its name to the registry
+    function, as in the JAX package (``multimodn_tpu/core/nn.py:90-102``), so
+    its model exports, pickles and runs in the fused chain. ``F.gelu`` thus
+    becomes the registry's tanh-form ``gelu``, the JAX package's, not torch's
+    erf default."""
     if act is None:
         return identity
     if callable(act):
+        if (getattr(act, "__module__", "") or "").startswith("torch"):
+            name = getattr(act, "__name__", type(act).__name__).lower()
+            if name in ACTIVATIONS:
+                return ACTIVATIONS[name]
+            raise ValueError(
+                f"torch activation {name!r} is not in the registry; known: "
+                f"{sorted(ACTIVATIONS)}")
         return act
     try:
         return ACTIVATIONS[act]

@@ -33,6 +33,7 @@ from multimodn_tpu_torch.data.kfold import StandardScaler
 from multimodn_tpu_torch.data.synth import (
     MIMIC_DEFAULT_TARGETS,
     MIMIC_SOURCE_DICT,
+    MIMIC_SOURCE_NAMES,
     SYNTH_MIMIC_VERSION,
     synthetic_mimic_embeddings,
 )
@@ -48,6 +49,11 @@ _REPO_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "../.."))
 # Read at call time: a caller may point every default-rooted cache
 # elsewhere by setting this attribute.
 DEFAULT_CACHE_ROOT = os.path.join(_REPO_ROOT, "data", "mimic")
+
+# The reference's module-level source tables (mimic_dataset.py).
+source_names = list(MIMIC_SOURCE_NAMES)
+source_size = [MIMIC_SOURCE_DICT[s] for s in source_names]
+source_dict = dict(MIMIC_SOURCE_DICT)
 
 _DEMOGRAPHICS = ("de_1", "de_2", "de_3", "de_4", "de_5")
 

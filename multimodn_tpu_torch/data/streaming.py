@@ -93,12 +93,6 @@ class StreamingLoader:
             yield data, targets, mask
 
 
-def is_torch_dataloader(obj) -> bool:
-    """True for a ``torch.utils.data.DataLoader`` (not for datasets,
-    samplers or other members of ``torch.utils.data``)."""
-    return isinstance(obj, torch.utils.data.DataLoader)
-
-
 def _length(obj) -> Optional[int]:
     if obj is None:
         return None
@@ -131,6 +125,7 @@ class TorchStreamingLoader:
     """
 
     def __init__(self, torch_loader):
+        from multimodn_tpu_torch.interop import is_torch_dataloader
         if not is_torch_dataloader(torch_loader):
             raise TypeError(
                 f"TorchStreamingLoader wraps a torch DataLoader, got "

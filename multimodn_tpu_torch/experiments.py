@@ -20,6 +20,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from multimodn_tpu_torch.interop import adapt_loader, adapt_optimizer
 from multimodn_tpu_torch.optim import Optimizer
 
 
@@ -46,9 +47,10 @@ def kfold_fit_best(
 
     Args:
         model_factory: seed -> MultiModN; one fresh model per fold.
-        folds: per-fold ``(train_loader, val_loader)`` pairs.
+        folds: per-fold ``(train_loader, val_loader)`` pairs; a torch
+            ``DataLoader`` is mapped onto an ``ArrayLoader`` (``interop``).
         optimizer: shared by the folds; each fold's model keeps its own
-            state.
+            state. A torch optimizer is mapped onto the port's.
         seeds: per-fold init seeds (default 0..F-1, the reference's per-fold
             seed increment).
         patience: per-fold early stopping, ``fit_best``'s semantics.
@@ -69,7 +71,8 @@ def kfold_fit_best(
         n_train_batches, n_val_batches}; scores and sums cover exactly the
         executed epochs.
     """
-    folds = list(folds)
+    folds = [(adapt_loader(t), adapt_loader(v)) for t, v in folds]
+    optimizer = adapt_optimizer(optimizer)
     if mesh is not None:
         raise NotImplementedError(
             "mesh=: sharding the fold axis across GPUs is not ported yet "

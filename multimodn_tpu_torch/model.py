@@ -12,7 +12,9 @@ CUDA kernel, and ``get_states``. Training: ``train_epoch``, ``test``, ``fit``
 and ``fit_best``, one Python loop over batches per epoch with one host
 transfer per epoch; the optimizer state lives in ``opt_state``. Every one
 of them takes an ``ArrayLoader`` or a streaming loader (``data.streaming``,
-``data.disk``), whose batches are copied to the device one ahead. The
+``data.disk``), whose batches are copied to the device one ahead; a torch
+optimizer, loss module or ``DataLoader`` is mapped onto the port's first
+(``interop``), and ``parameters()`` lets a torch optimizer be built. The
 ``StaticInitState`` cycle continues across every call, as the reference's
 shared ``itertools.cycle`` does.
 
@@ -31,7 +33,8 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from multimodn_tpu_torch.convert import params_from_jax, params_to_numpy
+from multimodn_tpu_torch.convert import params_from_jax, params_to_numpy, \
+    stack_encoders
 from multimodn_tpu_torch.core.fusion import default_order, \
     has_repeated_encoders
 from multimodn_tpu_torch.core.scan_chain import encoders_homogeneous
@@ -55,7 +58,8 @@ from multimodn_tpu_torch.core.step import (
     to_host,
     update_best,
 )
-from multimodn_tpu_torch.core.tree import tree_map
+from multimodn_tpu_torch.core.tree import tree_leaves, tree_map
+from multimodn_tpu_torch.interop import adapt_loader, adapt_optimizer
 from multimodn_tpu_torch.ops.fused_chain import ChainSpec, fused_chain_forward
 from multimodn_tpu_torch.optim import Optimizer
 from multimodn_tpu_torch.utils.summary import summarize_model
@@ -371,8 +375,9 @@ class MultiModN:
 
     @staticmethod
     def _is_loader(x) -> bool:
-        return hasattr(x, "stacks") or hasattr(x, "dataset") or \
-            MultiModN._streams(x)
+        """An ``ArrayLoader`` or a streaming loader (a torch ``DataLoader``
+        is adapted to an ``ArrayLoader`` before this check)."""
+        return hasattr(x, "stacks") or MultiModN._streams(x)
 
     @staticmethod
     def _streams(loader) -> bool:
@@ -435,6 +440,7 @@ class MultiModN:
 
         NaN inputs are NOT skipped here, matching the reference's predict
         (quirk #9): a NaN flows through the encoder into the state."""
+        x = adapt_loader(x)
         if self._is_loader(x):
             self._no_sequence_with_loader(encoder_sequence)
             return self._predict_loader(x)[0].cpu().numpy()
@@ -443,6 +449,7 @@ class MultiModN:
     def predict_proba(self, x, encoder_sequence=None) -> List[np.ndarray]:
         """Per-decoder (E+1, N, C_d) raw decoder outputs after every step,
         with ``predict``'s no-skip semantics."""
+        x = adapt_loader(x)
         if self._is_loader(x):
             self._no_sequence_with_loader(encoder_sequence)
             outs = self._predict_loader(x)[1]
@@ -484,6 +491,7 @@ class MultiModN:
         model's NaN skip and the padded rows dropped (reference
         ``multimodn.py:460-492``); a ``StaticInitState`` cycle advances by
         the loader's samples, as in every other call."""
+        loader = adapt_loader(loader)
         forwards = self._batch_forwards(loader, self.nan_skip)
         start = offset = self._cycle_base()
         states = []
@@ -605,6 +613,8 @@ class MultiModN:
         """One training epoch over ``train_loader``. With ``last_epoch``
         it returns ``test`` on the training loader, as the reference does
         (multimodn.py:251, quirk #16)."""
+        train_loader = adapt_loader(train_loader)
+        optimizer = adapt_optimizer(optimizer)
         criterion = resolve_criterion(criterion)
         self._train_epoch(train_loader, optimizer, criterion, history,
                           log_interval, logger)
@@ -653,6 +663,7 @@ class MultiModN:
         #5)."""
         if log_results and not logger:
             logger = print
+        test_loader = adapt_loader(test_loader)
         criterion = resolve_criterion(criterion)
         seqs = self._batch_seqs(test_loader)
         order = self._resolve_order(test_loader)
@@ -693,6 +704,9 @@ class MultiModN:
         """Train ``epochs`` epochs, each followed by a validation pass when
         ``val_loader`` is given; the history gets each epoch's grids, as
         looped ``train_epoch`` / ``test`` calls would give."""
+        train_loader = adapt_loader(train_loader)
+        val_loader = adapt_loader(val_loader)
+        optimizer = adapt_optimizer(optimizer)
         criterion = resolve_criterion(criterion)
         plan = self._plan_training(criterion, train_loader, val_loader,
                                    fused=True)
@@ -738,9 +752,10 @@ class MultiModN:
         epoch. Returns ``{"best_epoch", "best_score", "best_params",
         "scores", "epochs_ran"}``; with ``restore_best`` the model's
         parameters become the best epoch's."""
-        return self._fit_best(train_loader, optimizer, criterion, epochs,
-                              val_loader, history, val_tag, restore_best,
-                              patience)[0]
+        return self._fit_best(adapt_loader(train_loader),
+                              adapt_optimizer(optimizer), criterion, epochs,
+                              adapt_loader(val_loader), history, val_tag,
+                              restore_best, patience)[0]
 
     def _fit_best(self, train_loader, optimizer, criterion, epochs,
                   val_loader, history, val_tag, restore_best, patience,
@@ -842,6 +857,29 @@ class MultiModN:
         """The parameter tree as numpy arrays, in the JAX package's
         ``state_dict`` layout."""
         return params_to_numpy(self.params)
+
+    def _jax_storage(self) -> dict:
+        """``state_dict()`` in the storage the JAX package keeps for this
+        model: a scan-planned model's encoders stacked, each leaf with a
+        leading ``(E,)`` axis; per-encoder otherwise."""
+        params = self.state_dict()
+        if self._chain_plan()[0] == "scan":
+            params["encoders"] = stack_encoders(params["encoders"])
+        return params
+
+    def parameters(self):
+        """Detached copies of the parameter leaves on the model's device, in
+        the count, order and shapes of the JAX package's ``parameters()``
+        (JAX ``model.py:1312-1319``), so the reference's
+        ``torch.optim.Adam(list(model.parameters()), lr)``
+        (``titanic_mlp_pipeline.py:74``) builds. They are snapshots for the
+        optimizer's constructor, as in the JAX package: training updates the
+        model's own parameters through the port's optimizer
+        (``interop.adapt_optimizer``), never these copies; read the live
+        weights with ``state_dict()``."""
+        return iter([torch.nn.Parameter(torch.as_tensor(leaf,
+                                                        device=self.device))
+                     for leaf in tree_leaves(self._jax_storage())])
 
     def load_state_dict(self, state: dict):
         """Load a parameter tree: this package's ``state_dict`` or the JAX

@@ -45,3 +45,29 @@ def extract_pipeline_name(filename: str) -> str:
 
 def get_display_name(name: str) -> str:
     return name.replace("_", " ").capitalize()
+
+
+def get_logger(name: str, log_dir: str = "logs"):
+    """File (DEBUG) and console (INFO) logger with the reference's surface
+    (``pipelines/utils.py:88-116``), which no pipeline calls. Handlers are
+    attached once per name, so a repeat call returns the same logger without
+    doubling its output."""
+    import logging
+    import os
+
+    logger = logging.getLogger(name)
+    logger.setLevel(logging.DEBUG)
+    if logger.handlers:
+        return logger
+    os.makedirs(log_dir, exist_ok=True)
+    fmt = logging.Formatter(
+        "%(asctime)s - %(name)s - %(levelname)s - %(message)s")
+    fh = logging.FileHandler(os.path.join(log_dir, f"{name}.log"))
+    fh.setLevel(logging.DEBUG)
+    fh.setFormatter(fmt)
+    ch = logging.StreamHandler()
+    ch.setLevel(logging.INFO)
+    ch.setFormatter(fmt)
+    logger.addHandler(fh)
+    logger.addHandler(ch)
+    return logger

@@ -20,7 +20,6 @@ import torch
 
 from multimodn_tpu_torch import decoders as dec_mod
 from multimodn_tpu_torch import encoders as enc_mod
-from multimodn_tpu_torch.convert import stack_encoders
 from multimodn_tpu_torch.core.nn import activation_name
 from multimodn_tpu_torch.core.state import StaticInitState
 from multimodn_tpu_torch.model import MultiModN
@@ -160,12 +159,9 @@ def export_model(model: MultiModN, directory: str) -> str:
     }
     with open(os.path.join(directory, "config.json"), "w") as f:
         json.dump(config, f, indent=2)
-    params = model.state_dict()
-    if model._chain_plan()[0] == "scan":
-        # The JAX package stores a scan-planned model's encoders stacked,
-        # and reads an artifact into that layout.
-        params["encoders"] = stack_encoders(params["encoders"])
-    flat = dict(_flatten_with_paths(params))
+    # The JAX package reads an artifact into its own storage, stacked for a
+    # scan-planned model.
+    flat = dict(_flatten_with_paths(model._jax_storage()))
     if static:
         flat[STATIC_BANK_KEY] = model.init_state.bank()
     np.savez(os.path.join(directory, "params.npz"), **flat)

@@ -5,7 +5,9 @@ recurrent encoders, ``SGD`` and ``AdamW``, and two Titanic pipelines; and
 streamed batches (pinned, copied one ahead) and a killed and resumed
 ``Adam8bit`` fit on the card, bit-equal to their ArrayLoader and
 uninterrupted twins; shuffled and sequenced training on the card against
-the CPU, and K2's launches at a featurewise chain's leaf count.
+the CPU, and K2's launches at a featurewise chain's leaf count; torch
+objects (optimizer, ``DataLoader``, loss) training on the card bit-equal to
+the port's own, and their ``F.relu`` model served through K1.
 
 Every test here carries the ``cuda`` marker and skips without a GPU. The
 file imports neither JAX nor the JAX package, so it runs on a GPU machine
@@ -764,3 +766,50 @@ def test_featurewise_adam8bit_launches_follow_the_leaf_table(cuda):
                       Adam8bit(0.01), "cross_entropy")
     torch.cuda.synchronize()
     assert fa.FUSED_ADAM.launches - before == 2 * per_step
+
+
+@pytest.mark.cuda
+def test_torch_objects_train_and_serve_on_cuda(cuda):
+    """The drop-in surface on the card: torch Adam over ``parameters()``, a
+    shuffled ``DataLoader`` and ``nn.CrossEntropyLoss()`` through
+    ``train_epoch`` + ``test`` equal the port's own Adam and ArrayLoader bit
+    for bit, and the model, built with ``F.relu``, serves through K1 within
+    ATOL of the plain chain."""
+    import torch.nn as nn
+    import torch.nn.functional as F
+    import torch.utils.data as tud
+    rng = np.random.default_rng(4)
+    X = rng.normal(size=(64, 9)).astype(np.float32)
+    X[rng.random(64) < 0.3, :4] = np.nan
+    y = (np.nansum(X, 1) > 0).astype(np.int64)
+    ds = PartitionDataset(X, y, [4, 5])
+    models = []
+    for torch_objects in (True, False):
+        model = MultiModN(6, [tenc.MLPEncoder(6, w, (8,), F.relu)
+                              for w in (4, 5)],
+                          [tdec.MLPDecoder(6, (8,), 2)], 1.0, 0.2, seed=2,
+                          device=cuda)
+        if torch_objects:
+            opt = torch.optim.Adam(list(model.parameters()), 0.01)
+            train = tud.DataLoader(ds, 16, shuffle=True)
+            val, criterion = tud.DataLoader(ds, 16), nn.CrossEntropyLoss()
+        else:
+            opt, criterion = Adam(0.01), "cross_entropy"
+            train = ArrayLoader(ds, 16, shuffle=True, seed=0)
+            val = ArrayLoader(ds, 16)
+        for _ in range(2):
+            model.train_epoch(train, opt, criterion)
+            model.test(val, criterion)
+        models.append(model)
+    for a, b in zip(tree_leaves(models[0].params),
+                    tree_leaves(models[1].params)):
+        assert torch.equal(a, b)
+    xs = [X[:16, :4], X[:16, 4:]]
+    before = fc.FUSED_CHAIN.launches
+    states, outs = models[0].fused_forward(xs)
+    torch.cuda.synchronize()
+    assert fc.FUSED_CHAIN.launches > before
+    want = models[0].predict_proba([np.nan_to_num(m) for m in xs])
+    valid = ~np.isnan(xs[0]).any(1)
+    got = outs[0].cpu().numpy()
+    assert np.abs(got[:, valid] - want[0][:, valid]).max() <= ATOL

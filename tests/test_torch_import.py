@@ -280,6 +280,43 @@ def test_streamed_resumable_pipeline_runs_without_jax_pandas_or_sklearn(
     assert proc.stdout.strip().endswith("ok")
 
 
+def test_reference_body_runs_without_jax_pandas_sklearn_tqdm_or_matplotlib(
+        tmp_path):
+    """Importing ``multimodn_tpu_torch.compat`` and running the
+    reference-idiom quick-start under ``reference_paths`` (through
+    ``run_script``, with ``-p false``) on the CPU, in a process where
+    importing jax, the JAX package, the repo root's shims, pandas,
+    scikit-learn, tqdm or matplotlib fails."""
+    script = textwrap.dedent("""
+        import os, pickle, shutil, sys
+        blocked = ("jax", "multimodn_tpu", "pandas", "sklearn", "tqdm",
+                   "matplotlib")
+        for name in blocked:
+            sys.modules[name] = None       # any import of them now fails
+        from multimodn_tpu_torch import compat
+        work = sys.argv[1]
+        path = os.path.join(work, "titanic_mlp_pipeline.py")
+        shutil.copy(os.path.join(os.path.dirname(compat.__file__),
+                                 "examples", "titanic_mlp_pipeline.py"), path)
+        compat.run_script(path, ["-e", "2", "-p", "false"], device="cpu")
+        with open(os.path.join(work, "models",
+                               "titanic_mlp_history.pkl"), "rb") as f:
+            assert len(pickle.load(f).loss["train"]) == 2
+        assert os.path.exists(os.path.join(work, "results",
+                                           "titanic_mlp.csv"))
+        leaked = sorted(k for k in sys.modules
+                        if k.split(".")[0] in blocked + compat.NAMES
+                        and sys.modules[k] is not None)
+        assert not leaked, leaked
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp_path)],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
 @pytest.fixture()
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
