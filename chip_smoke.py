@@ -7,11 +7,12 @@
     python3 chip_smoke.py --mnar-only --epochs 10
     python3 chip_smoke.py --orders-only
     python3 chip_smoke.py --dropin-only
+    python3 chip_smoke.py --experiments-only
 
 The first form is the smoke run; the second times phase 8 alone at another
 data size and depth, the third with every fold's batches streamed; the
 fourth runs the MNAR protocol grid alone, the fifth phase 13 alone, the
-sixth phase 14 alone.
+sixth phase 14 alone, the seventh phase 15 alone.
 Phases, each fatal on failure:
 
 1. the card's name and power limit, torch and CUDA versions; TF32 off;
@@ -153,13 +154,29 @@ Phases, each fatal on failure:
    ``export_model`` -> ``load_model``, each serving 8 requests of 16 rows
    with NaN rows through K1 (launches = requests x the plan's, 2 at MIMIC
    width) against the plain chain;
-15. the earlier designs' times from PERF.md on a line of their own, the
-   ``mnar``, ``transformer``, ``resume``, ``orders`` and ``dropin`` lines,
-   one ``{"kernels": [...]}`` line of this run's numbers (launches summed
-   over every path that ran the kernel, by phase in ``launches_by_phase``;
-   K1's with ``titanic``, ``mnar``, ``resumed``, ``orders`` and ``dropin``
-   blocks, K2's with ``resume`` and ``orders`` blocks), the script's wall
-   time, the card's line, and last the ``{"ok": true, ...}`` line.
+15. the experiment surface and ahead-of-time serving at the MIMIC model's
+   full width on phase 6's cohort: ``sweep_fit_best`` over 4 seeds with
+   ``Adam8bit``, 2 epochs of batch 16, ``on_epoch`` set (K2 once per step of
+   every seed; each seed bit-equal, parameters, moment codes, scales,
+   scores and best epoch, to that seed's own ``fit_best`` on a fresh
+   loader), steps/s; ``kfold_fit_best`` over 2 folds with ``on_epoch`` and
+   ``patience`` 1 (payloads fold after fold, ``fold_history``); seed 0's
+   best model through ``export_compiled`` (traced on the CPU) ->
+   ``load_compiled`` onto the card (also by default), answering requests
+   of 1, 16 and 32 rows with NaN cells within 1e-4 of K1's
+   ``fused_forward`` (launches counted) and 1e-5 of the plain chain with
+   the skip, and the artifact's warm p50 per request of 16 beside K1's, in
+   turns; ``utils.profiling.trace`` around 8 training steps under
+   ``annotate`` (the trace must name the region); the port of
+   ``examples/production_features.py`` on the card;
+16. the earlier designs' times from PERF.md on a line of their own, the
+   ``mnar``, ``transformer``, ``resume``, ``orders``, ``dropin`` and
+   ``experiments`` lines, one ``{"kernels": [...]}`` line of this run's
+   numbers (launches summed over every path that ran the kernel, by phase
+   in ``launches_by_phase``; K1's with ``titanic``, ``mnar``, ``resumed``,
+   ``orders``, ``dropin`` and ``experiments`` blocks, K2's with ``resume``,
+   ``orders`` and ``experiments`` blocks), the script's wall time, the
+   card's line, and last the ``{"ok": true, ...}`` line.
 
 ``--mnar-only`` runs phase 1 and the MNAR protocol grid alone at the
 published cohort scale (300 patients, 5 folds) for ``batch``, ``sample``
@@ -446,20 +463,21 @@ def check_kernel(name, model, batches, gen):
     return records
 
 
-def serving_requests(seed=0, widths=MIMIC_WIDTHS):
-    """8 requests of batch 16 over modalities of ``widths``; some rows have
-    a NaN modality (whole row or a single entry) so the per-sample skip is
-    exercised."""
+def serving_requests(seed=0, widths=MIMIC_WIDTHS, batch=SERVING_BATCH):
+    """8 requests of ``batch`` rows (16) over modalities of ``widths``; some
+    rows have a NaN modality (whole row or a single entry) so the
+    per-sample skip is exercised."""
     rng = np.random.default_rng(seed)
     requests = []
     for r in range(SERVING_REQUESTS):
-        x = [rng.normal(size=(SERVING_BATCH, w)).astype(np.float32)
+        x = [rng.normal(size=(batch, w)).astype(np.float32)
              for w in widths]
         if r % 2 == 0:
             for e in range(len(x)):
-                rows = rng.choice(SERVING_BATCH, size=3, replace=False)
+                rows = rng.choice(batch, size=min(3, batch), replace=False)
                 x[e][rows[:2]] = np.nan
-                x[e][rows[2], rng.integers(x[e].shape[1])] = np.nan
+                if len(rows) > 2:
+                    x[e][rows[2], rng.integers(x[e].shape[1])] = np.nan
         requests.append(x)
     return requests
 
@@ -2535,6 +2553,272 @@ def run_dropin(device):
     return {"quickstart": quick, "mimic": mimic, "served": served}
 
 
+# Phase 15: the experiment surface and ahead-of-time serving at the MIMIC
+# model's full width on phase 6's cohort: a 4-seed Adam8bit sweep (2 epochs,
+# each seed held bit for bit against its own fit_best), a 2-fold k-fold with
+# patience, seed 0's best model as a torch.export artifact served at three
+# batch sizes against K1 and the plain chain, a profiling.trace of 8 steps,
+# and the production-features example.
+EXP_SEEDS, EXP_EPOCHS = (0, 1, 2, 3), 2
+EXP_FOLDS, EXP_FOLD_EPOCHS, EXP_PATIENCE = 2, 3, 1
+EXP_BATCHES = (1, 16, 32)
+# The artifact runs the plain chain's aten ops on the card, so it agrees with
+# the plain chain up to cuBLAS choosing other kernels for other shapes.
+ARTIFACT_TOL = 1e-5
+
+
+def exp_model(device):
+    return lambda seed: mimic_model(device, seed=seed)
+
+
+def exp_payloads(seen, n, label):
+    """``n`` payloads of ``fit_best``'s keys, every value finite."""
+    keys = {"epoch", "train_loss", "val_loss", "score"}
+    if len(seen) != n or any(set(p) != keys for p in seen) or not all(
+            np.isfinite(v) for p in seen for v in p.values()):
+        raise AssertionError(f"{label}: on_epoch payloads {seen}")
+
+
+def exp_sweep(device, train_set, val_set):
+    """(1) the sweep on the main path, K2 counted; then each seed's own
+    fit_best on a fresh loader (uncounted) against it, bit for bit."""
+    from multimodn_tpu_torch.experiments import sweep_fit_best
+    train = ArrayLoader(train_set, TRAIN_BATCH, shuffle=True, seed=0)
+    val = ArrayLoader(val_set, TRAIN_BATCH)
+    seen = []
+    torch.cuda.synchronize()
+    FUSED_CHAIN.launches = FUSED_ADAM.launches = 0
+    t0 = time.perf_counter()
+    results = sweep_fit_best(exp_model(device), train, val,
+                             Adam8bit(ADAM_LR), "cross_entropy",
+                             epochs=EXP_EPOCHS, seeds=EXP_SEEDS,
+                             on_epoch=seen.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2, k1 = FUSED_ADAM.launches, FUSED_CHAIN.launches
+    steps = sum(r["epochs_ran"] for r in results) * train.n_batches
+    per_step = fa.launches_per_update(
+        [tuple(t.shape) for t in tree_leaves(results[0]["model"].params)])
+    if k2 != per_step * steps or k1:
+        raise AssertionError(f"sweep: K2 {k2} launches for {steps} steps of "
+                             f"{per_step}, K1 {k1}")
+    exp_payloads(seen, len(EXP_SEEDS) * EXP_EPOCHS, "sweep")
+    mismatches = []
+    for seed, r in zip(EXP_SEEDS, results):
+        model = mimic_model(device, seed=seed)
+        info = model.fit_best(
+            ArrayLoader(train_set, TRAIN_BATCH, shuffle=True, seed=0),
+            Adam8bit(ADAM_LR), "cross_entropy", epochs=EXP_EPOCHS,
+            val_loader=ArrayLoader(val_set, TRAIN_BATCH))
+        bad = bit_mismatches(r["model"], model)
+        mismatches.append(bad)
+        if bad or info["best_epoch"] != r["best_epoch"] or \
+                not np.array_equal(info["scores"], r["scores"]):
+            raise AssertionError(
+                f"sweep seed {seed}: {bad} elements differ from its own "
+                f"fit_best; best epoch {r['best_epoch']} against "
+                f"{info['best_epoch']}")
+    out = {"seeds": list(EXP_SEEDS), "epochs": EXP_EPOCHS, "steps": steps,
+           "wall_s": wall, "steps_per_s": steps / wall, "k2_launches": k2,
+           "k2_launches_per_step": k2 / steps, "payloads": len(seen),
+           "best_epochs": [r["best_epoch"] for r in results],
+           "best_scores": [r["best_score"] for r in results],
+           "mismatching_elements_vs_fit_best": mismatches}
+    log(f"  sweep_fit_best, Adam8bit: {json.dumps(out)}")
+    return out, results
+
+
+def exp_kfold(device, train_set, val_set):
+    """(2) two folds of the cohort's training rows, patience 1."""
+    from multimodn_tpu_torch.experiments import fold_history, kfold_fit_best
+    half = len(train_set.indices) // EXP_FOLDS
+    folds = [(ArrayLoader(Subset(train_set.dataset, train_set.indices[
+        f * half:(f + 1) * half]), TRAIN_BATCH), ArrayLoader(
+            val_set, TRAIN_BATCH)) for f in range(EXP_FOLDS)]
+    seen = []
+    torch.cuda.synchronize()
+    FUSED_CHAIN.launches = FUSED_ADAM.launches = 0
+    t0 = time.perf_counter()
+    results = kfold_fit_best(exp_model(device), folds, Adam8bit(ADAM_LR),
+                             "cross_entropy", epochs=EXP_FOLD_EPOCHS,
+                             patience=EXP_PATIENCE, on_epoch=seen.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2 = FUSED_ADAM.launches
+    ran = [r["epochs_ran"] for r in results]
+    steps = sum(n * f[0].n_batches for n, f in zip(ran, folds))
+    if k2 != steps or FUSED_CHAIN.launches:
+        raise AssertionError(f"k-fold: K2 {k2} launches for {steps} steps")
+    exp_payloads(seen, sum(ran), "k-fold")
+    if [p["epoch"] for p in seen] != [e for n in ran for e in range(n)]:
+        raise AssertionError(f"k-fold payload order {seen}")
+    history = fold_history(results[0], [f"t{d}" for d in
+                                        range(MIMIC_TARGETS)])
+    if len(history.loss["val"]) != ran[0]:
+        raise AssertionError("fold_history rows")
+    out = {"folds": EXP_FOLDS, "epochs": EXP_FOLD_EPOCHS,
+           "patience": EXP_PATIENCE, "epochs_ran": ran, "steps": steps,
+           "wall_s": wall, "steps_per_s": steps / wall, "k2_launches": k2,
+           "payloads": len(seen)}
+    log(f"  kfold_fit_best, Adam8bit, patience {EXP_PATIENCE}: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def plain_outputs(model, x, device):
+    """The plain chain with the per-sample skip, every decoder on every
+    state row."""
+    data = tuple(torch.as_tensor(m, device=device) for m in x)
+    states = forward_chain(
+        model.encoders, model.init_state, model.params, data,
+        torch.ones(x[0].shape[0], device=device),
+        order=default_order(len(model.encoders)), nan_skip="sample")[0]
+    return [dec.apply(model.params["decoders"][d], states)
+            for d, dec in enumerate(model.decoders)]
+
+
+def exp_artifact(device, model, work):
+    """(3) seed 0's best model through export_compiled (traced on the CPU)
+    and load_compiled onto the card; requests of 1, 16 and 32 rows with NaN
+    cells against K1's fused_forward (launches counted) and the plain chain;
+    warm p50 per request of 16, the artifact's and K1's, in turns."""
+    from multimodn_tpu_torch import export_compiled, load_compiled
+    t0 = time.perf_counter()
+    path = export_compiled(model, os.path.join(work, "model.pt2"))
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run = load_compiled(path, device="cuda")
+    load_s = time.perf_counter() - t0
+    if load_compiled(path)(*serving_requests(seed=16)[0])[0].device.type \
+            != "cuda":
+        raise AssertionError("load_compiled() did not default to the card")
+    requests = [x for b in EXP_BATCHES for x in serving_requests(
+        seed=150 + b, batch=b)[:2]]
+    torch.cuda.synchronize()
+    FUSED_CHAIN.launches = FUSED_ADAM.launches = 0
+    err_k1 = err_plain = 0.0
+    for x in requests:
+        got = run(*x)
+        _states, k1 = model.fused_forward(x)
+        plain = plain_outputs(model, x, device)
+        for g in got:
+            if g.device.type != "cuda" or not torch.isfinite(g).all():
+                raise AssertionError("artifact answer not finite on the card")
+        err_k1 = max(err_k1, max_err(list(got), k1))
+        err_plain = max(err_plain, max_err(list(got), plain))
+    torch.cuda.synchronize()
+    launches = FUSED_CHAIN.launches
+    per_request = ChainSpec(model.encoders, model.decoders,
+                            model.state_size).launches
+    if launches != per_request * len(requests) or FUSED_ADAM.launches:
+        raise AssertionError(f"artifact check: K1 {launches} launches for "
+                             f"{len(requests)} requests")
+    if not (err_k1 <= TOL and err_plain <= ARTIFACT_TOL):
+        raise AssertionError(f"artifact against K1 {err_k1:.3e}, against "
+                             f"the plain chain {err_plain:.3e}")
+    warm = serving_requests(seed=17)
+    times = {"artifact": [], "k1": []}
+    for rep in range(4):
+        for x in warm:
+            order = ("artifact", "k1") if rep % 2 == 0 else ("k1", "artifact")
+            for name in order:
+                t0 = time.perf_counter()
+                run(*x) if name == "artifact" else model.fused_forward(x)
+                torch.cuda.synchronize()
+                times[name].append(1e3 * (time.perf_counter() - t0))
+    out = {"batches": list(EXP_BATCHES), "requests": len(requests),
+           "k1_launches": launches, "launches_per_request": per_request,
+           "max_abs_err_vs_k1": err_k1, "tolerance_vs_k1": TOL,
+           "max_abs_err_vs_plain": err_plain,
+           "tolerance_vs_plain": ARTIFACT_TOL,
+           "artifact_bytes": os.path.getsize(path), "export_s": export_s,
+           "load_s": load_s, "warm_requests": len(times["k1"]),
+           "batch": SERVING_BATCH,
+           "artifact_request_ms_p50": float(np.percentile(
+               times["artifact"], 50)),
+           "k1_request_ms_p50": float(np.percentile(times["k1"], 50)),
+           "artifact_request_ms_p90": float(np.percentile(
+               times["artifact"], 90)),
+           "k1_request_ms_p90": float(np.percentile(times["k1"], 90))}
+    log(f"  export_compiled -> load_compiled on the card: {json.dumps(out)}")
+    return out
+
+
+def exp_trace(device, train_set, work, steps=8):
+    """(4) utils.profiling.trace around 8 Adam8bit steps of the MIMIC
+    model, each epoch under annotate(); the trace must name the region."""
+    from multimodn_tpu_torch.utils.profiling import EpochTimer, annotate, \
+        trace
+    loader = ArrayLoader(Subset(train_set.dataset,
+                                train_set.indices[:steps * TRAIN_BATCH]),
+                         TRAIN_BATCH)
+    steps = loader.n_batches
+    model, optimizer = mimic_model(device), Adam8bit(ADAM_LR)
+    model.train_epoch(loader, optimizer, "cross_entropy")   # warm-up
+    logdir = os.path.join(work, "trace")
+    timer = EpochTimer(sync_tree=model.params)
+    torch.cuda.synchronize()
+    FUSED_CHAIN.launches = FUSED_ADAM.launches = 0
+    with trace(logdir):
+        with timer.epoch(), annotate("chip_smoke_train_epoch"):
+            model.train_epoch(loader, optimizer, "cross_entropy")
+    k2 = FUSED_ADAM.launches
+    with open(os.path.join(logdir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    device_ms = sum(e.get("dur", 0) for e in kernels) / 1e3
+    if "chip_smoke_train_epoch" not in names or k2 != steps:
+        raise AssertionError(f"trace: annotation present "
+                             f"{'chip_smoke_train_epoch' in names}, K2 {k2}")
+    out = {"steps": steps, "k2_launches": k2, "epoch_ms": 1e3 * timer.last_s,
+           "trace_events": len(events), "kernels_per_step":
+           len(kernels) / steps, "device_ms_per_step": device_ms / steps,
+           "device_busy_share": device_ms / (1e3 * timer.last_s)}
+    log(f"  profiling.trace of {steps} steps: {json.dumps(out)}")
+    return out
+
+
+def exp_example(device):
+    """(5) the port of examples/production_features.py on the card."""
+    from multimodn_tpu_torch.examples import production_features
+    t0 = time.perf_counter()
+    out = production_features.main(device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    served = out["served"]
+    if not (np.isfinite(out["resumable"]["best_score"])
+            and out["resumable"]["epochs_run"] == 20
+            and all(p.device.type == "cuda" and p.shape == (3, b, 2)
+                    and torch.isfinite(p).all() for b, p in served.items())
+            and len(out["kfold"]) == 2):
+        raise AssertionError("production_features: unexpected results")
+    r = {"wall_s": wall, "best_score": out["resumable"]["best_score"],
+         "kfold_best_scores": [f["best_score"] for f in out["kfold"]]}
+    log(f"  production_features example: {json.dumps(r)}")
+    return r
+
+
+def run_experiments(device):
+    """Phase 15."""
+    if foreign_modules():
+        raise AssertionError(f"loaded before phase 15: {foreign_modules()}")
+    _ds, train_set, val_set = mimic_training_loaders()
+    work = tempfile.mkdtemp(prefix="chip_smoke_experiments_")
+    try:
+        sweep, results = exp_sweep(device, train_set, val_set)
+        kfold = exp_kfold(device, train_set, val_set)
+        artifact = exp_artifact(device, results[0]["model"], work)
+        profiled = exp_trace(device, train_set, work)
+        example = exp_example(device)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if foreign_modules():
+        raise AssertionError(f"loaded by phase 15: {foreign_modules()}")
+    return {"sweep": sweep, "kfold": kfold, "artifact": artifact,
+            "trace": profiled, "example": example}
+
+
 def build_kernels():
     """Build every kernel library at once (one nvcc per source)."""
     with ThreadPoolExecutor(max_workers=2) as pool:
@@ -2576,6 +2860,10 @@ def parse_args(argv=None):
     p.add_argument("--dropin-only", action="store_true",
                    help="run phases 1, 2 and 14 (the drop-in torch surface) "
                         "only and end with the dropin line (no ok line)")
+    p.add_argument("--experiments-only", action="store_true",
+                   help="run phases 1, 2 and 15 (the experiment surface and "
+                        "ahead-of-time serving) only and end with the "
+                        "experiments line (no ok line)")
     p.add_argument("--resume-child", nargs=2, metavar=("KIND", "DIR"),
                    help=argparse.SUPPRESS)
     return p.parse_args(argv)
@@ -2643,6 +2931,12 @@ def main(argv=None) -> int:
         log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
         log(card)
         return 0
+    if args.experiments_only:
+        log("== phase 15: experiments and ahead-of-time serving")
+        log("experiments: " + json.dumps(run_experiments(device)))
+        log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
+        log(card)
+        return 0
 
     log("== phase 3: kernel against plain")
     log(f"tolerance {TOL:g}: {TOL_REASON}")
@@ -2693,19 +2987,26 @@ def main(argv=None) -> int:
     log("== phase 14: drop-in torch surface")
     log(card_line())
     dropin = run_dropin(device)
+
+    log("== phase 15: experiments and ahead-of-time serving")
+    log(card_line())
+    experiments = run_experiments(device)
     k1_by_phase = {
         "4": launches,
         "9": sum(r["launches"] for r in titanic["served"].values()),
         "10": mnar_served["launches"],
         "12": resume["served"]["launches"],
         "13": orders["mimic"]["served"]["launches"],
-        "14": sum(r["launches"] for r in dropin["served"].values())}
+        "14": sum(r["launches"] for r in dropin["served"].values()),
+        "15": experiments["artifact"]["k1_launches"]}
     k2_by_phase = {
         "6": runs["Adam8bit"]["launches"],
         "12": sum(resume["resume"][kind]["k2_launches"]
                   for kind in ("array", "stream")),
         "13": orders["mimic"]["k2_launches"] + sum(
-            r["k2_launches"] for r in orders["featurewise"].values())}
+            r["k2_launches"] for r in orders["featurewise"].values()),
+        "15": sum(experiments[k]["k2_launches"]
+                  for k in ("sweep", "kfold", "trace"))}
 
     main_b = mimic[SERVING_BATCH]
     entry = {
@@ -2749,6 +3050,7 @@ def main(argv=None) -> int:
             "pipeline", "requests", "launches", "launches_per_request",
             "max_abs_err", "batch", "ms", "plain_ms", "bound_ms",
             "bound_by")} for label, r in dropin["served"].items()},
+        "experiments": experiments["artifact"],
     }
     step = adam["times"]["mimic_step"]
     adam_entry = {
@@ -2789,6 +3091,8 @@ def main(argv=None) -> int:
                 "k2_profiled")} for label, r in
                 orders["featurewise"].items()},
             "featurewise_update": orders["featurewise_adam"]},
+        "experiments": {k: {n: experiments[k][n] for n in (
+            "k2_launches", "steps")} for k in ("sweep", "kfold", "trace")},
     }
     log("earlier designs (not measured in this run): "
         + json.dumps(EARLIER))
@@ -2801,6 +3105,7 @@ def main(argv=None) -> int:
         "resume", "disk", "pipelines", "payload_write", "rates")}))
     log("orders: " + json.dumps(orders))
     log("dropin: " + json.dumps(dropin))
+    log("experiments: " + json.dumps(experiments))
     log(json.dumps({"kernels": [entry, adam_entry]}))
     log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
     log(card)

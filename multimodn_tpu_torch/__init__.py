@@ -27,7 +27,11 @@ loaders (``data.streaming``, ``data.disk`` over the native reader of
 ``AdamW`` / ``SGD``, loss modules and ``DataLoader`` at every entry point
 (``interop``), ``MultiModN.parameters()``, and the reference's import paths
 (``multimodn.*``, ``datasets.*``, ``pipelines.utils``) under
-``compat.reference_paths`` / ``compat.run_script``.
+``compat.reference_paths`` / ``compat.run_script``; ahead-of-time
+artifacts (``export_compiled`` / ``load_compiled``, ``torch.export``
+programs) and the experiment surface: ``on_epoch`` progress callbacks,
+``experiments.sweep_fit_best`` and ``fold_history``, streamed experiments
+(``experiments_stream``) and ``utils.profiling``.
 """
 from multimodn_tpu_torch.convert import opt_state_from_jax, params_from_jax
 from multimodn_tpu_torch.core.history import MultiModNHistory
@@ -44,7 +48,9 @@ from multimodn_tpu_torch.model import MultiModN
 from multimodn_tpu_torch.optim import SGD, Adam, Adam8bit, AdamW, Optimizer
 from multimodn_tpu_torch.serving import (
     InferenceSession,
+    export_compiled,
     export_model,
+    load_compiled,
     load_model,
 )
 
@@ -68,6 +74,8 @@ __all__ = [
     "InferenceSession",
     "export_model",
     "load_model",
+    "export_compiled",
+    "load_compiled",
     "params_from_jax",
     "opt_state_from_jax",
 ]

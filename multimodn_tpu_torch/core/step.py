@@ -251,6 +251,13 @@ def epoch_reduction(sums: dict, n_batches: int,
     }
 
 
+def epoch_loss(host_sums: dict, n_batches: int) -> float:
+    """An epoch's loss as a progress callback reports it: the mean of the
+    (E+1, D) loss grid, each cell's sum over batches divided by
+    ``n_batches`` (JAX ``core/step.py:706-707``)."""
+    return float(host_sums["err_loss"].mean() / n_batches)
+
+
 def gated_update(optimizer, grads, opt_state, params, enc_gates=None):
     """Apply one optimizer step to ``params`` in place and return the new
     optimizer state. An optimizer with ``fused_apply`` writes the

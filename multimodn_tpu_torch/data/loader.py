@@ -164,3 +164,8 @@ class ArrayLoader:
                 torch.as_tensor(targets, device=device),
                 torch.as_tensor(mask, device=device))
         return self._stacks[device]
+
+
+# The JAX package's drop-in-named alias (JAX ``data/loader.py:218``), for
+# callers arriving from the reference's ``torch.utils.data.DataLoader``.
+DataLoader = ArrayLoader

@@ -48,6 +48,7 @@ from multimodn_tpu_torch.core.state import (
     TrainableInitState,
 )
 from multimodn_tpu_torch.core.step import (
+    epoch_loss,
     epoch_reduction,
     make_batch_loss_fn,
     make_forward_fn,
@@ -700,10 +701,19 @@ class MultiModN:
         history: Optional[MultiModNHistory] = None,
         val_loader=None,
         val_tag: str = "val",
+        *,
+        on_epoch: Optional[Callable] = None,
     ):
         """Train ``epochs`` epochs, each followed by a validation pass when
         ``val_loader`` is given; the history gets each epoch's grids, as
-        looped ``train_epoch`` / ``test`` calls would give."""
+        looped ``train_epoch`` / ``test`` calls would give.
+
+        ``on_epoch``: called after each epoch, in order and before this
+        method returns, with ``{"epoch", "train_loss"}`` and ``"val_loss"``
+        when there is a ``val_loader`` (``epoch`` counts from 0 in this
+        call; a loss is the mean of the epoch's loss grid, as the JAX
+        package streams it). It costs one host read per epoch, the one the
+        history takes when both are set."""
         train_loader = adapt_loader(train_loader)
         val_loader = adapt_loader(val_loader)
         optimizer = adapt_optimizer(optimizer)
@@ -719,14 +729,22 @@ class MultiModN:
                 (vsums, *_), n_val = self._eval_pass(
                     val_loader, plan.loss_fn, plan.per_batch)
                 sums.append(vsums)
+            if history is None and on_epoch is None:
+                continue
+            sums = to_host(sums)
             if history is not None:
-                sums = to_host(sums)
                 stats = self._stats(sums[0], n_train)
                 history.append_epoch("train", stats,
                                      state_change=stats["state_change_loss"])
                 if val_loader is not None:
                     history.append_epoch(val_tag, self._stats(sums[1],
                                                               n_val))
+            if on_epoch is not None:
+                payload = {"epoch": e,
+                           "train_loss": epoch_loss(sums[0], n_train)}
+                if val_loader is not None:
+                    payload["val_loss"] = epoch_loss(sums[1], n_val)
+                on_epoch(payload)
         self._epoch_counter += epochs
         return history
 
@@ -741,6 +759,8 @@ class MultiModN:
         val_tag: str = "val",
         restore_best: bool = True,
         patience: Optional[int] = None,
+        *,
+        on_epoch: Optional[Callable] = None,
     ) -> dict:
         """Train ``epochs`` epochs and keep the parameters of the epoch with
         the best validation score: AUROC plus balanced accuracy summed over
@@ -751,16 +771,22 @@ class MultiModN:
         consecutive epochs (at least 1). The host reads the score once per
         epoch. Returns ``{"best_epoch", "best_score", "best_params",
         "scores", "epochs_ran"}``; with ``restore_best`` the model's
-        parameters become the best epoch's."""
+        parameters become the best epoch's.
+
+        ``on_epoch``: called after each executed epoch's selection, in
+        order and before this method returns, with ``{"epoch",
+        "train_loss", "val_loss", "score"}`` (``fit``'s losses); it reads
+        nothing the epoch does not read already."""
         return self._fit_best(adapt_loader(train_loader),
                               adapt_optimizer(optimizer), criterion, epochs,
                               adapt_loader(val_loader), history, val_tag,
-                              restore_best, patience)[0]
+                              restore_best, patience, on_epoch=on_epoch)[0]
 
     def _fit_best(self, train_loader, optimizer, criterion, epochs,
                   val_loader, history, val_tag, restore_best, patience,
                   resume: Optional[dict] = None,
-                  after_epoch: Optional[Callable] = None):
+                  after_epoch: Optional[Callable] = None,
+                  on_epoch: Optional[Callable] = None):
         """``fit_best`` plus each executed epoch's training and validation
         grid sums (host tensors).
 
@@ -768,8 +794,8 @@ class MultiModN:
         from its selection state ``{"best": (params, score, epoch),
         "scores"}`` at epoch ``len(scores)``; the caller has restored the
         parameters, optimizer state, cycle and the epoch counter the call
-        started from. ``after_epoch(epoch, best, scores)`` runs after each
-        epoch's selection and history rows."""
+        started from. ``on_epoch(payload)``, then ``after_epoch(epoch, best,
+        scores)``, run after each epoch's selection and history rows."""
         if val_loader is None:
             raise ValueError("fit_best requires a val_loader")
         binary = [d.n_classes == 2 for d in self.decoders]
@@ -808,6 +834,11 @@ class MultiModN:
                 history.append_epoch("train", stats,
                                      state_change=stats["state_change_loss"])
                 history.append_epoch(val_tag, self._stats(vsums, n_val))
+            if on_epoch is not None:
+                on_epoch({"epoch": e,
+                          "train_loss": epoch_loss(tsums, n_train),
+                          "val_loss": epoch_loss(vsums, n_val),
+                          "score": scores[-1]})
             if after_epoch is not None:
                 after_epoch(e, best, scores)
             if patience is not None and since >= patience:

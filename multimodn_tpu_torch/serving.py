@@ -5,8 +5,10 @@ twin of ``multimodn_tpu/serving.py``).
 every decoder after each step. ``export_model`` / ``load_model`` write and
 read the JAX package's format, ``config.json`` + ``params.npz``, so a model
 exported by either package loads in the other. It rebuilds the MLP-family,
-SLP, recurrent and attention encoders and the dense decoders; ahead-of-time
-compiled exports come later (ROADMAP.md Queue A, 'Serving').
+SLP, recurrent and attention encoders and the dense decoders.
+``export_compiled`` / ``load_compiled`` write and serve an ahead-of-time
+artifact: the model's whole forward with its parameters inside, a
+``torch.export`` program (``.pt2``) that loads without this package.
 """
 from __future__ import annotations
 
@@ -20,8 +22,11 @@ import torch
 
 from multimodn_tpu_torch import decoders as dec_mod
 from multimodn_tpu_torch import encoders as enc_mod
-from multimodn_tpu_torch.core.nn import activation_name
+from multimodn_tpu_torch.convert import params_from_jax
+from multimodn_tpu_torch.core.nn import activation_name, resolve_device
 from multimodn_tpu_torch.core.state import StaticInitState
+from multimodn_tpu_torch.core.step import make_forward_fn
+from multimodn_tpu_torch.core.tree import tree_leaves, tree_unflatten
 from multimodn_tpu_torch.model import MultiModN
 
 STATIC_BANK_KEY = "__static_init_state_bank__"
@@ -230,3 +235,130 @@ def load_model(directory: str, device=None) -> MultiModN:
     )
     model.load_state_dict(_unflatten(flat))
     return model
+
+
+# ---------------------------------------------------------------------------
+# Ahead-of-time artifacts: torch.export programs
+# ---------------------------------------------------------------------------
+
+class _CompiledForward(torch.nn.Module):
+    """The forward an artifact computes, with the parameter leaves as
+    buffers, so ``torch.export`` saves them inside the program."""
+
+    def __init__(self, forward, params: dict):
+        super().__init__()
+        self._forward = forward
+        self._like = params
+        leaves = tree_leaves(params)
+        self._n_leaves = len(leaves)
+        for i, leaf in enumerate(leaves):
+            self.register_buffer(f"leaf{i}", leaf)
+
+    def forward(self, *modalities):
+        params = tree_unflatten(self._like, [
+            getattr(self, f"leaf{i}") for i in range(self._n_leaves)])
+        mask = torch.ones(modalities[0].shape[0],
+                          device=modalities[0].device)
+        return tuple(self._forward(params, modalities, mask)[1])
+
+
+def _drop_noop_casts(program):
+    """Remove the exported graph's casts to the dtype a tensor already has
+    (``dense_apply`` casts to the compute dtype, float32 here) and their
+    metadata asserts: in an exported program each is a host dispatch per
+    call, about half of the MIMIC forward's operations."""
+    graph = program.graph_module.graph
+    ops = torch.ops.aten
+    for node in list(graph.nodes):
+        if node.op != "call_function":
+            continue
+        if node.target is ops._assert_tensor_metadata.default:
+            graph.erase_node(node)
+        elif node.target is ops.to.dtype and len(node.args) == 2 and \
+                not node.kwargs and \
+                node.args[0].meta["val"].dtype == node.args[1]:
+            node.replace_all_uses_with(node.args[0])
+            graph.erase_node(node)
+    graph.eliminate_dead_code()
+    program.graph_module.recompile()
+    return program
+
+
+# torch.export specialises a batch of 0 or 1; an example of 2 rows keeps
+# the batch dimension symbolic, and the artifact serves any b >= 1.
+_EXAMPLE_BATCH = 2
+
+
+def export_compiled(model: MultiModN, path: str,
+                    platforms=("cpu", "cuda"), encoder_sequence=None) -> str:
+    """Write the model's whole forward as an ahead-of-time artifact at
+    ``path``: a ``torch.export`` program (``torch.export.save``, a
+    ``.pt2`` archive) with the parameters inside and a symbolic batch
+    dimension, traced on the CPU whatever the model's device.
+
+    The artifact takes one ``(b, F)`` float32 array per modality, in the
+    order of the resolved ``(modality, encoder)`` pairing of
+    ``encoder_sequence`` (the identity by default): modality ``d`` has the
+    width of the encoder paired with it. It returns every decoder's raw
+    outputs after every step, ``(E+1, b, C_d)`` per decoder, under the
+    model's own ``nan_skip`` (the serving semantics; ``predict_proba``
+    does not skip, quirk #9). A ``StaticInitState`` model is exported at
+    cycle phase 0.
+
+    ``platforms`` keeps the JAX package's signature: the program runs on
+    whichever device ``load_compiled`` moves it to, 'cpu' or 'cuda'; the
+    JAX package's 'tpu' has no counterpart and raises ``ValueError``."""
+    unknown = set(platforms) - {"cpu", "cuda"}
+    if unknown:
+        raise ValueError(
+            f"platforms {sorted(unknown)}: a torch.export artifact runs on "
+            "'cpu' or 'cuda' (a TPU needs the JAX package's "
+            "export_compiled)")
+    for i, e in enumerate(model.encoders):
+        if getattr(e, "n_features", None) is None:
+            raise ValueError(
+                f"encoder {i} ({type(e).__name__}) does not expose "
+                "n_features; export_compiled needs static input widths.")
+    order = model._resolve_order(None, encoder_sequence)
+    # Modality d takes the width of the encoder the pairing gives it, not
+    # the width of encoder d (JAX serving.py:306-322).
+    widths = {d: model.encoders[e].n_features for d, e in order}
+    init_state = StaticInitState(model.init_state.bank()) \
+        if isinstance(model.init_state, StaticInitState) \
+        else model.init_state
+    forward = make_forward_fn(model.encoders, model.decoders, init_state,
+                              order, model.nan_skip,
+                              model._forward_chain(order))
+    module = _CompiledForward(forward,
+                              params_from_jax(model.state_dict(), "cpu"))
+    example = tuple(torch.zeros(_EXAMPLE_BATCH, widths[d])
+                    for d in range(max(widths) + 1))
+    batch = torch.export.Dim("b", min=1)
+    program = torch.export.export(
+        module, example, dynamic_shapes=(tuple({0: batch} for _ in example),))
+    torch.export.save(_drop_noop_casts(program), path)
+    return path
+
+
+def load_compiled(path: str, device=None):
+    """Load an ``export_compiled`` artifact onto ``device`` (CUDA unless the
+    caller names another). Returns a callable that takes the per-modality
+    arrays (numpy or tensors, each ``(b, F)``, any ``b >= 1``) and returns
+    the per-decoder ``(E+1, b, C_d)`` output tensors on that device. It
+    builds no model: the file alone is the program (``torch.export.load``
+    reads it in any process with a compatible torch)."""
+    device = resolve_device(device)
+    program = torch.export.load(path)
+    if device.type != "cpu":
+        from torch.export.passes import move_to_device_pass
+        program = move_to_device_pass(program, device)
+    module = program.module()
+
+    @torch.no_grad()
+    def run(*modalities):
+        return module(*(torch.as_tensor(np.asarray(m, np.float32)
+                                        if not torch.is_tensor(m) else m,
+                                        dtype=torch.float32, device=device)
+                        for m in modalities))
+
+    return run

@@ -7,7 +7,9 @@ streamed batches (pinned, copied one ahead) and a killed and resumed
 uninterrupted twins; shuffled and sequenced training on the card against
 the CPU, and K2's launches at a featurewise chain's leaf count; torch
 objects (optimizer, ``DataLoader``, loss) training on the card bit-equal to
-the port's own, and their ``F.relu`` model served through K1.
+the port's own, and their ``F.relu`` model served through K1; an
+``Adam8bit`` seed sweep through K2 bit-equal to each seed's ``fit_best``,
+and an ahead-of-time artifact on the card against K1.
 
 Every test here carries the ``cuda`` marker and skips without a GPU. The
 file imports neither JAX nor the JAX package, so it runs on a GPU machine
@@ -813,3 +815,60 @@ def test_torch_objects_train_and_serve_on_cuda(cuda):
     valid = ~np.isnan(xs[0]).any(1)
     got = outs[0].cpu().numpy()
     assert np.abs(got[:, valid] - want[0][:, valid]).max() <= ATOL
+
+
+@pytest.mark.cuda
+def test_adam8bit_sweep_on_cuda_equals_each_fit_best(cuda):
+    """``sweep_fit_best`` with ``Adam8bit`` on the card: K2 once per step
+    of every seed, and each seed bit-equal to its own ``fit_best`` (moment
+    codes and scales too) on the same shuffled loader state."""
+    from multimodn_tpu_torch.experiments import sweep_fit_best
+    _, ds = _mimic_stream_case(cuda)
+
+    def factory(seed):
+        return MultiModN(
+            50, [tenc.MIMICMLPEncoder(50, w, (32, 32), 0.2)
+                 for w in (10, 1024, 768, 99)],
+            [tdec.MLPDecoder(50, (32, 32), 2) for _ in range(2)], 1.0, 0.0,
+            seed=seed, device=cuda)
+
+    before = fa.FUSED_ADAM.launches
+    got = sweep_fit_best(factory, ArrayLoader(ds, 16, shuffle=True, seed=3),
+                         ArrayLoader(ds, 16), Adam8bit(LR), epochs=2,
+                         seeds=[0, 5])
+    torch.cuda.synchronize()
+    assert fa.FUSED_ADAM.launches - before == 2 * 2 * 5
+    for seed, res in zip([0, 5], got):
+        model = factory(seed)
+        want = model.fit_best(ArrayLoader(ds, 16, shuffle=True, seed=3),
+                              Adam8bit(LR), epochs=2,
+                              val_loader=ArrayLoader(ds, 16))
+        assert res["best_epoch"] == want["best_epoch"]
+        np.testing.assert_array_equal(res["scores"], want["scores"])
+        _same_bits(res["model"].params, model.params)
+        _same_bits(res["model"].opt_state, model.opt_state)
+
+
+@pytest.mark.cuda
+def test_compiled_artifact_on_cuda_matches_k1(cuda, tmp_path):
+    """A MIMIC-width artifact, exported on the CPU from a model on the card
+    and loaded onto the card (the default device), answers batches of 1,
+    16 and 33 with NaN rows within ATOL of K1's ``fused_forward``."""
+    from multimodn_tpu_torch import export_compiled, load_compiled
+    model = _model("mimic", cuda)
+    run = load_compiled(export_compiled(model, str(tmp_path / "m.pt2")))
+    rng = np.random.default_rng(5)
+    for B in (1, 16, 33):
+        xs = [rng.normal(size=(B, e.n_features)).astype(np.float32)
+              for e in model.encoders]
+        for m, x in enumerate(xs):
+            x[rng.random(B) < 0.3] = np.nan
+            x[0, m] = np.nan
+        got = run(*xs)
+        before = fc.FUSED_CHAIN.launches
+        _states, want = model.fused_forward(xs)
+        torch.cuda.synchronize()
+        assert fc.FUSED_CHAIN.launches > before
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda"
+            torch.testing.assert_close(g, w, rtol=0, atol=ATOL)

@@ -38,6 +38,7 @@ from multimodn_tpu_torch.data import ArrayLoader as TLoader
 from multimodn_tpu_torch.data import PartitionDataset as TDataset
 from multimodn_tpu_torch.data import mimic as tmimic
 from multimodn_tpu_torch.experiments import kfold_fit_best as tkfold
+from multimodn_tpu_torch.experiments import sweep_fit_best as tsweep
 from multimodn_tpu_torch.pipelines import utils as tutils
 from multimodn_tpu_torch.pipelines.mimic import common as tcommon
 
@@ -157,8 +158,8 @@ def test_kfold_unported_arguments_raise():
     opt = tmm.Adam(1e-2)
     with pytest.raises(NotImplementedError, match="item 20"):
         tkfold(tfactory, tfolds, opt, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tkfold(tfactory, tfolds, opt, on_epoch=print)
+    with pytest.raises(NotImplementedError, match="item 20"):
+        tsweep(tfactory, *tfolds[0], opt, mesh=object())
     with pytest.raises(ValueError, match="patience"):
         tkfold(tfactory, tfolds, opt, patience=0)
 
