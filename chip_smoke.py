@@ -8,11 +8,13 @@
     python3 chip_smoke.py --orders-only
     python3 chip_smoke.py --dropin-only
     python3 chip_smoke.py --experiments-only
+    python3 chip_smoke.py --precision-only
 
 The first form is the smoke run; the second times phase 8 alone at another
 data size and depth, the third with every fold's batches streamed; the
 fourth runs the MNAR protocol grid alone, the fifth phase 13 alone, the
-sixth phase 14 alone, the seventh phase 15 alone.
+sixth phase 14 alone, the seventh phase 15 alone, the eighth phase 16
+alone.
 Phases, each fatal on failure:
 
 1. the card's name and power limit, torch and CUDA versions; TF32 off;
@@ -169,14 +171,37 @@ Phases, each fatal on failure:
    turns; ``utils.profiling.trace`` around 8 training steps under
    ``annotate`` (the trace must name the region); the port of
    ``examples/production_features.py`` on the card;
-16. the earlier designs' times from PERF.md on a line of their own, the
-   ``mnar``, ``transformer``, ``resume``, ``orders``, ``dropin`` and
-   ``experiments`` lines, one ``{"kernels": [...]}`` line of this run's
-   numbers (launches summed over every path that ran the kernel, by phase
-   in ``launches_by_phase``; K1's with ``titanic``, ``mnar``, ``resumed``,
-   ``orders``, ``dropin`` and ``experiments`` blocks, K2's with ``resume``,
-   ``orders`` and ``experiments`` blocks), the script's wall time, the
-   card's line, and last the ``{"ok": true, ...}`` line.
+16. mixed precision and the ResNet-18 image encoder: (a) the MIMIC model
+   at full width with ``compute_dtype='bfloat16'``, ``fit_best`` for 3
+   epochs of batch 16 on phase 6's cohort with ``Adam8bit`` (K2 once per
+   step; masters fp32), its final training loss within the JAX package's
+   bound (rtol 0.05, atol 0.02) of the same run in fp32, one step on the
+   card against the CPU, and the model through ``export_model`` ->
+   ``load_model`` (the dtype kept) serving 8 requests of 16 rows with NaN
+   rows through K1 in fp32 against the plain chain, launches counted;
+   (b) ``Adam(state_dtype=torch.bfloat16)`` on that model for 1 epoch
+   (bf16 moments, finite losses); (c) the MIMIC transformer model of
+   phase 11 in bf16 beside fp32 at batch 16 and 1024: steps/s, kernels per
+   step, device ms and busy share from ``utils.profiling.trace`` (recorded,
+   not checked); (d) a ``ResNet(state_size=50)`` over 224 x 224 x 3 NHWC
+   images, 30% of them NaN, beside a ``MIMICMLPEncoder`` over the 1024-wide
+   source, 2 ``MLPDecoder``s: K2 bit for bit against its plain version on
+   one update of all 102 ResNet leaves in both code formats, timed beside
+   it and its bound; ``fit_best`` for 2 epochs of batch 32 over 256 rows in
+   fp32 and in bf16 with ``Adam8bit`` (K2 launches per step from the leaf
+   table), the present rows' states unmoved when NaN images' pixels change
+   (masked BatchNorm), ``update_batch_stats`` then evaluation-mode
+   ``predict_proba``, one fp32 step on the card against the CPU and
+   evaluation outputs against the CPU;
+17. the earlier designs' times from PERF.md on a line of their own, the
+   ``mnar``, ``transformer``, ``resume``, ``orders``, ``dropin``,
+   ``experiments`` and ``precision`` lines, one ``{"kernels": [...]}`` line
+   of this run's numbers (launches summed over every path that ran the
+   kernel, by phase in ``launches_by_phase``; K1's with ``titanic``,
+   ``mnar``, ``resumed``, ``orders``, ``dropin``, ``experiments`` and
+   ``precision`` blocks, K2's with ``resume``, ``orders``, ``experiments``
+   and ``precision`` blocks), the script's wall time, the card's line, and
+   last the ``{"ok": true, ...}`` line.
 
 ``--mnar-only`` runs phase 1 and the MNAR protocol grid alone at the
 published cohort scale (300 patients, 5 folds) for ``batch``, ``sample``
@@ -2819,6 +2844,404 @@ def run_experiments(device):
             "trace": profiled, "example": example}
 
 
+# Phase 16: mixed precision and the ResNet-18 image encoder. (a) The MIMIC
+# model at full width with compute_dtype='bfloat16' trained by fit_best on
+# phase 6's cohort through Adam8bit (K2 once per step) beside the same run
+# in fp32, one step on the card against the CPU, and the model exported,
+# loaded (keeping the dtype) and serving 8 requests through K1 in fp32;
+# (b) Adam(state_dtype=torch.bfloat16) on that model; (c) the transformer
+# step in bf16 beside fp32 (utils.profiling.trace); (d) a ResNet-18 over
+# 224 x 224 x 3 images with 30% of them NaN beside a MIMICMLPEncoder, trained
+# in fp32 and in bf16 through Adam8bit, K2 held bit for bit on every ResNet
+# leaf, the masked BatchNorm, update_batch_stats then eval-mode predict, and
+# one step on the card against the CPU.
+PRECISION_EPOCHS, PRECISION_DTYPE = 3, "bfloat16"
+# The JAX package's own bound between a bf16 and an fp32 training run
+# (tests/test_mixed_precision.py:37-39).
+BF16_LOSS_RTOL, BF16_LOSS_ATOL = 0.05, 0.02
+# One Adam8bit step from the same weights on the card and the CPU. The two
+# sum products in other orders (in bf16, both accumulate in fp32 and round
+# to bf16, so an activation may take the neighbouring bf16 number), so a
+# gradient near 0 may take opposite signs. The first step moves a
+# parameter by lr * m_hat / sqrt(v_hat), which is lr exactly in fp32; the
+# fp8 codes round m by up to 2**-4 and v by up to 2**-4 (sqrt: 2**-5), so
+# by up to 1.1 lr here, and two opposite moves differ by up to 2.2 lr.
+ONE_STEP_TOL = 2.2 * ADAM_LR
+IMAGE_SIZE, IMAGE_ROWS, IMAGE_VAL_ROWS, IMAGE_BATCH, IMAGE_EPOCHS = \
+    224, 256, 64, 32, 2
+IMAGE_MISSING, IMAGE_CPU_ROWS, IMAGE_TRACE_BATCHES = 0.3, 8, 4
+IMAGE_FEATURES = MIMIC_WIDTHS[1]
+
+
+def precision_fit(device, dtype, train_set, val_set, epochs, make_optimizer,
+                  count=False):
+    """``fit_best`` of the MIMIC model in ``dtype``: the model, the
+    history's mean training losses, K2's launches over the call (counted
+    from 0 when ``count``), its steps and wall time."""
+    model = mimic_model(device, compute_dtype=dtype)
+    train = ArrayLoader(train_set, TRAIN_BATCH, shuffle=True, seed=0)
+    val = ArrayLoader(val_set, TRAIN_BATCH)
+    history = MultiModNHistory([f"t{d}" for d in range(MIMIC_TARGETS)])
+    torch.cuda.synchronize()
+    if count:
+        FUSED_CHAIN.launches = FUSED_ADAM.launches = 0
+    before = FUSED_ADAM.launches
+    t0 = time.perf_counter()
+    best = model.fit_best(train, make_optimizer(), "cross_entropy",
+                          epochs=epochs, val_loader=val, history=history)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(np.mean(g)) for g in history.loss["train"]]
+    steps = best["epochs_ran"] * train.n_batches
+    return model, {"losses": losses, "k2_launches":
+                   FUSED_ADAM.launches - before, "steps": steps,
+                   "wall_s": wall, "steps_per_s": steps / wall,
+                   "best_epoch": best["best_epoch"],
+                   "best_score": best["best_score"]}
+
+
+def masters_fp32(model, label):
+    if not all(t.dtype == torch.float32 for t in tree_leaves(model.params)):
+        raise AssertionError(f"{label}: a master parameter is not fp32")
+
+
+def one_step_against_cpu(make_model, dataset, optimizer, tol, label,
+                         device, batch):
+    """One step of ``optimizer`` from the same weights on the same batch on
+    the card and the CPU: the largest parameter difference, held to
+    ``tol``."""
+    gpu, cpu = make_model(device), make_model("cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    for m in (gpu, cpu):
+        m.train_epoch(ArrayLoader(dataset, batch), optimizer(),
+                      "cross_entropy")
+    torch.cuda.synchronize()
+    err = param_err(gpu, cpu)
+    log(f"  card vs CPU, {label}, one step: max abs param diff {err:.3e} "
+        f"(tol {tol:g})")
+    if not err <= tol:
+        raise AssertionError(f"{label}: the card and the CPU disagree")
+    return err
+
+
+def precision_bf16_mimic(device, work):
+    """(a) and (b)."""
+    _ds, train_set, val_set = mimic_training_loaders()
+    fp32, fp32_run = precision_fit(device, None, train_set, val_set,
+                                   PRECISION_EPOCHS, lambda: Adam8bit(ADAM_LR))
+    model, run = precision_fit(device, PRECISION_DTYPE, train_set, val_set,
+                               PRECISION_EPOCHS, lambda: Adam8bit(ADAM_LR),
+                               count=True)
+    masters_fp32(model, "bf16 MIMIC")
+    per_step = fa.launches_per_update(
+        [tuple(t.shape) for t in tree_leaves(model.params)])
+    if run["k2_launches"] != per_step * run["steps"] or FUSED_CHAIN.launches:
+        raise AssertionError(f"bf16 MIMIC: K2 {run['k2_launches']} launches "
+                             f"for {run['steps']} steps of {per_step}")
+    last, ref = run["losses"][-1], fp32_run["losses"][-1]
+    if not (np.isfinite(run["losses"]).all() and np.isclose(
+            last, ref, rtol=BF16_LOSS_RTOL, atol=BF16_LOSS_ATOL)):
+        raise AssertionError(f"bf16 MIMIC: final training loss {last} "
+                             f"against fp32 {ref}")
+    _d, small, _v = mimic_training_loaders()
+    subset = Subset(small.dataset, small.indices[:TRAIN_BATCH])
+    device_err = one_step_against_cpu(
+        lambda d: mimic_model(d, seed=1, dropout=0.0,
+                              compute_dtype=PRECISION_DTYPE),
+        subset, lambda: Adam8bit(ADAM_LR), ONE_STEP_TOL,
+        "bf16 MIMIC, Adam8bit", device, TRAIN_BATCH)
+    loaded = export_and_load(model, os.path.join(work, "bf16"), device,
+                             "bf16 MIMIC")
+    if loaded.compute_dtype != PRECISION_DTYPE:
+        raise AssertionError(f"load_model gave compute_dtype "
+                             f"{loaded.compute_dtype!r}")
+    served = serve_trained("bf16 MIMIC", loaded, serving_requests(seed=160),
+                           device)
+    out = {"dtype": PRECISION_DTYPE, "epochs": PRECISION_EPOCHS,
+           "batch": TRAIN_BATCH, "bf16": run, "fp32": fp32_run,
+           "loss_rtol": BF16_LOSS_RTOL, "loss_atol": BF16_LOSS_ATOL,
+           "k2_launches_per_step": per_step,
+           "device_vs_cpu_max_abs_err": device_err,
+           "device_vs_cpu_tolerance": ONE_STEP_TOL}
+    log(f"  bf16 MIMIC fit_best, Adam8bit: {json.dumps(out)}")
+    log(f"  bf16 MIMIC served through K1 in fp32: {json.dumps(served)}")
+
+    # (b) bf16 moments, beside fp32 moments.
+    _m, adam_fp32 = precision_fit(device, PRECISION_DTYPE, train_set,
+                                  val_set, 1, lambda: Adam(ADAM_LR))
+    adam_model, adam_run = precision_fit(
+        device, PRECISION_DTYPE, train_set, val_set, 1,
+        lambda: Adam(ADAM_LR, state_dtype=torch.bfloat16))
+    moments = [t.dtype for k in ("m", "v")
+               for t in tree_leaves(adam_model.opt_state[k])]
+    if set(moments) != {torch.bfloat16} or \
+            not np.isfinite(adam_run["losses"]).all():
+        raise AssertionError(f"Adam(state_dtype=bf16): moments {set(moments)}"
+                             f", losses {adam_run['losses']}")
+    masters_fp32(adam_model, "Adam(state_dtype=bf16)")
+    adam_run["moment_dtype"] = "bfloat16"
+    adam_run["fp32_moments_steps_per_s"] = adam_fp32["steps_per_s"]
+    log(f"  Adam(state_dtype=bfloat16), bf16 MIMIC: {json.dumps(adam_run)}")
+    return out, served, adam_run
+
+
+def trace_steps(model, loader, optimizer, work, label):
+    """A warm-up epoch, a timed epoch (steps/s), then one epoch under
+    ``utils.profiling.trace``: kernels per step, device ms per step and the
+    busy share, read from the trace's kernel events."""
+    from multimodn_tpu_torch.utils.profiling import trace
+    model.train_epoch(loader, optimizer, "cross_entropy")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.train_epoch(loader, optimizer, "cross_entropy")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    logdir = os.path.join(work, label.replace(" ", "_"))
+    with trace(logdir):
+        t0 = time.perf_counter()
+        model.train_epoch(loader, optimizer, "cross_entropy")
+        torch.cuda.synchronize()
+        traced_ms = 1e3 * (time.perf_counter() - t0)
+    with open(os.path.join(logdir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    steps = loader.n_batches
+    device_ms = sum(e.get("dur", 0) for e in kernels) / 1e3
+    ops = {}
+    for e in events:
+        if e.get("cat") == "cpu_op":
+            ms, n = ops.get(e["name"], (0.0, 0))
+            ops[e["name"]] = (ms + e.get("dur", 0) / 1e3, n + 1)
+    r = {"steps": steps, "steps_per_s": steps / wall,
+         "step_ms": 1e3 * wall / steps,
+         "kernels_per_step": len(kernels) / steps,
+         "device_ms_per_step": device_ms / steps if device_ms else None,
+         "device_busy_share": device_ms / traced_ms if device_ms else None,
+         "host_ops_per_step": sum(n for _, n in ops.values()) / steps,
+         "top_host_ops": [{"name": name, "per_step": n / steps,
+                           "ms_per_step": ms / steps} for name, (ms, n) in
+                          sorted(ops.items(), key=lambda kv: -kv[1][0])[:6]]}
+    log(f"  {label}: {json.dumps(r)}")
+    return r
+
+
+def precision_transformer(device, work):
+    """(c) The transformer step in bf16 and fp32 at batch 16 and 1024."""
+    out = {}
+    for B in PROFILE_BATCHES:
+        loader = ArrayLoader(random_dataset(MIMIC_WIDTHS, 8 * B, seed=6), B)
+        for dtype in (None, PRECISION_DTYPE):
+            model = transformer_model(device)
+            model.compute_dtype = dtype
+            out[f"{dtype or 'float32'}_{B}"] = trace_steps(
+                model, loader, Adam(TRANSFORMER_LR), work,
+                f"MIMIC transformer {dtype or 'float32'} batch {B}")
+    out["parameters"] = sum(t.numel() for t in tree_leaves(
+        transformer_model(device).params))
+    return out
+
+
+class ImageRows:
+    """Seeded rows of a 224 x 224 x 3 NHWC image (a share of them NaN) and
+    the MIMIC model's 1024-wide source, with two labels."""
+
+    def __init__(self, n, seed):
+        rng = np.random.default_rng(seed)
+        self.img = rng.normal(size=(n, IMAGE_SIZE, IMAGE_SIZE, 3)) \
+            .astype(np.float32)
+        self.img[rng.random(n) < IMAGE_MISSING] = np.nan
+        self.x = rng.normal(size=(n, IMAGE_FEATURES)).astype(np.float32)
+        self.y = np.stack([self.x[:, :4].sum(1) > 0, self.x[:, 4:8].sum(1)
+                           > 0], 1).astype(np.int64)
+
+    def __len__(self):
+        return len(self.y)
+
+    def arrays(self):
+        return [self.img, self.x], self.y, None
+
+
+def image_model(device, dtype=None, seed=0):
+    from multimodn_tpu_torch.encoders import ResNet
+    return MultiModN(
+        MIMIC_STATE, [ResNet(state_size=MIMIC_STATE),
+                      MIMICMLPEncoder(MIMIC_STATE, IMAGE_FEATURES,
+                                      (MIMIC_HIDDEN,) * 2, dropout=0.0)],
+        [MLPDecoder(MIMIC_STATE, (MIMIC_HIDDEN,) * 2, 2)
+         for _ in range(MIMIC_TARGETS)], 1.0, 0.0, seed=seed, device=device,
+        compute_dtype=dtype)
+
+
+def check_resnet_update(device, gen):
+    """K2 on one update of every leaf of a ResNet-18 (state 50): 4-D HWIO
+    kernels, the BatchNorm leaves and the head, both code formats, bit for
+    bit; then timed beside the plain version and its bound."""
+    shapes = [tuple(t.shape) for t in tree_leaves(
+        image_model(device).params["encoders"][0])]
+    result = {"leaves": len(shapes), "largest": max(shapes, key=np.prod),
+              "launches_per_update": fa.launches_per_update(shapes)}
+    for fmt in ("fp8", "int8"):
+        leaves = [adam_leaf(s, fmt, gen, device) + [None] for s in shapes]
+        bad, err, launches = check_adam_leaves(leaves, fmt)
+        result[fmt] = {"mismatches": bad, "max_abs_err": err,
+                       "launches": launches}
+        if bad or launches != result["launches_per_update"]:
+            raise AssertionError(f"K2 on the ResNet leaves ({fmt}): {bad} "
+                                 f"mismatching elements, {launches} "
+                                 f"launches")
+    result["times"] = time_adam(shapes, "fp8", gen, device)
+    log(f"  K2 on one update of the {len(shapes)} ResNet-18 leaves: "
+        f"{json.dumps(result)}")
+    return result
+
+
+def image_fit(device, dtype, train, val):
+    """``fit_best`` of the image model in ``dtype`` through Adam8bit, K2's
+    launches counted from 0 over the call."""
+    model = image_model(device, dtype)
+    torch.cuda.synchronize()
+    FUSED_CHAIN.launches = FUSED_ADAM.launches = 0
+    t0 = time.perf_counter()
+    best = model.fit_best(ArrayLoader(train, IMAGE_BATCH), Adam8bit(ADAM_LR),
+                          "cross_entropy", epochs=IMAGE_EPOCHS,
+                          val_loader=ArrayLoader(val, IMAGE_BATCH))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = best["epochs_ran"] * ArrayLoader(train, IMAGE_BATCH).n_batches
+    per_step = fa.launches_per_update(
+        [tuple(t.shape) for t in tree_leaves(model.params)])
+    k2 = FUSED_ADAM.launches
+    if k2 != per_step * steps or FUSED_CHAIN.launches:
+        raise AssertionError(f"image model {dtype}: K2 {k2} launches for "
+                             f"{steps} steps of {per_step}")
+    masters_fp32(model, f"image model {dtype}")
+    if not all(np.isfinite(best["scores"])):
+        raise AssertionError(f"image model {dtype}: scores {best['scores']}")
+    return model, {"steps": steps, "wall_s": wall, "steps_per_s":
+                   steps / wall, "k2_launches": k2,
+                   "k2_launches_per_step": per_step,
+                   "leaves": len(tree_leaves(model.params)),
+                   "scores": [float(s) for s in best["scores"]]}
+
+
+def masked_bn_check(model, rows, device):
+    """Train mode through the chain on one batch whose NaN images keep
+    finite pixels but one: the present rows' states must not move when
+    those pixels change (the chain passes the effective mask)."""
+    img = rows.img[:IMAGE_BATCH].copy()
+    nan_rows = np.isnan(img).reshape(IMAGE_BATCH, -1).any(1)
+    img[nan_rows] = np.random.default_rng(3).normal(
+        size=img[nan_rows].shape).astype(np.float32)
+    img[nan_rows, 0, 0, 0] = np.nan
+    mask = torch.ones(IMAGE_BATCH, device=device)
+
+    def states(images):
+        with torch.no_grad():
+            return forward_chain(
+                model.encoders, model.init_state, model.params,
+                (torch.as_tensor(images, device=device),
+                 torch.as_tensor(rows.x[:IMAGE_BATCH], device=device)),
+                mask, order=default_order(2), nan_skip="sample",
+                train=True)[-1]
+
+    base = states(img)
+    moved = img.copy()
+    moved[nan_rows] = np.where(np.isnan(img[nan_rows]), np.nan,
+                               np.flip(img[nan_rows], axis=1) * 3 + 1)
+    present = torch.as_tensor(~nan_rows, device=device)
+    diff = float((states(moved) - base)[present].abs().max())
+    if not diff <= TOL:
+        raise AssertionError(f"masked BatchNorm: present rows moved by "
+                             f"{diff} when NaN images' pixels changed")
+    return {"nan_rows": int(nan_rows.sum()), "present_rows_max_abs_change":
+            diff, "tolerance": TOL}
+
+
+def precision_images(device, work, gen):
+    """(d)."""
+    t0 = time.perf_counter()
+    rows, val = ImageRows(IMAGE_ROWS, 21), ImageRows(IMAGE_VAL_ROWS, 22)
+    data_s = time.perf_counter() - t0
+    resnet_update = check_resnet_update(device, gen)
+    runs, models = {}, {}
+    for dtype in (None, PRECISION_DTYPE):
+        models[dtype], runs[dtype or "float32"] = image_fit(
+            device, dtype, rows, val)
+    k2 = sum(r["k2_launches"] for r in runs.values())
+    traced = {}
+    for dtype in (None, PRECISION_DTYPE):
+        traced[dtype or "float32"] = trace_steps(
+            image_model(device, dtype), ArrayLoader(Subset(
+                rows, range(IMAGE_TRACE_BATCHES * IMAGE_BATCH)), IMAGE_BATCH),
+            Adam8bit(ADAM_LR), work, f"image model {dtype or 'float32'}, "
+            f"batch {IMAGE_BATCH}")
+    model = models[PRECISION_DTYPE]
+    masked = masked_bn_check(model, rows, device)
+    present = ~np.isnan(rows.img[:IMAGE_BATCH]).reshape(IMAGE_BATCH, -1) \
+        .any(1)
+    images = rows.img[:IMAGE_BATCH][present]
+    x = [images, rows.x[:IMAGE_BATCH][present]]
+    before = model.predict_proba(x)
+    enc = model.encoders[0]
+    model.params["encoders"][0] = enc.update_batch_stats(
+        model.params["encoders"][0], images)
+    after = model.predict_proba(x)
+    if not all(np.isfinite(a).all() for a in after) or all(
+            np.array_equal(a, b) for a, b in zip(after, before)):
+        raise AssertionError("update_batch_stats then predict: outputs "
+                             "not finite or unchanged")
+    cpu_rows = ImageRows(IMAGE_CPU_ROWS, 23)
+    device_err = one_step_against_cpu(
+        lambda d: image_model(d, seed=1), cpu_rows,
+        lambda: Adam8bit(ADAM_LR), ONE_STEP_TOL, "image model, fp32",
+        device, IMAGE_CPU_ROWS)
+    gpu, cpu = image_model(device, seed=2), image_model("cpu", seed=2)
+    cpu.load_state_dict(gpu.state_dict())
+    probe = [images[:4], x[1][:4]]
+    eval_err = max(float(np.abs(a - b).max()) for a, b in zip(
+        gpu.predict_proba(probe), cpu.predict_proba(probe)))
+    if not eval_err <= TOL:
+        raise AssertionError(f"image model eval outputs, card vs CPU: "
+                             f"{eval_err}")
+    out = {"image": [IMAGE_SIZE, IMAGE_SIZE, 3], "rows": IMAGE_ROWS,
+           "val_rows": IMAGE_VAL_ROWS, "batch": IMAGE_BATCH,
+           "epochs": IMAGE_EPOCHS, "nan_share": IMAGE_MISSING,
+           "data_s": data_s, "resnet_parameters": sum(
+               t.numel() for t in tree_leaves(model.params["encoders"][0])),
+           "runs": runs, "traced": traced, "k2_launches": k2,
+           "masked_bn": masked,
+           "update_batch_stats_then_predict": "finite, changed",
+           "device_vs_cpu_max_abs_err": device_err,
+           "device_vs_cpu_tolerance": ONE_STEP_TOL,
+           "eval_outputs_device_vs_cpu": eval_err}
+    log(f"  image model (ResNet-18 + MIMICMLPEncoder): {json.dumps(out)}")
+    return out, resnet_update
+
+
+def run_precision(device, gen):
+    """Phase 16."""
+    if foreign_modules():
+        raise AssertionError(f"loaded before phase 16: {foreign_modules()}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_precision_")
+    try:
+        t0 = time.perf_counter()
+        mimic, served, adam_bf16 = precision_bf16_mimic(device, work)
+        t1 = time.perf_counter()
+        transformer = precision_transformer(device, work)
+        t2 = time.perf_counter()
+        images, resnet_update = precision_images(device, work, gen)
+        t3 = time.perf_counter()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if foreign_modules():
+        raise AssertionError(f"loaded by phase 16: {foreign_modules()}")
+    return {"mimic_bf16": mimic, "served": served, "adam_bf16": adam_bf16,
+            "transformer": transformer, "images": images,
+            "resnet_update": resnet_update,
+            "seconds": {"mimic": t1 - t0, "transformer": t2 - t1,
+                        "images": t3 - t2}}
+
+
 def build_kernels():
     """Build every kernel library at once (one nvcc per source)."""
     with ThreadPoolExecutor(max_workers=2) as pool:
@@ -2864,6 +3287,10 @@ def parse_args(argv=None):
                    help="run phases 1, 2 and 15 (the experiment surface and "
                         "ahead-of-time serving) only and end with the "
                         "experiments line (no ok line)")
+    p.add_argument("--precision-only", action="store_true",
+                   help="run phases 1, 2 and 16 (mixed precision and the "
+                        "ResNet image model) only and end with the "
+                        "precision line (no ok line)")
     p.add_argument("--resume-child", nargs=2, metavar=("KIND", "DIR"),
                    help=argparse.SUPPRESS)
     return p.parse_args(argv)
@@ -2937,6 +3364,13 @@ def main(argv=None) -> int:
         log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
         log(card)
         return 0
+    if args.precision_only:
+        log("== phase 16: mixed precision and the ResNet image model")
+        log("precision: " + json.dumps(run_precision(
+            device, torch.Generator(device=device).manual_seed(16))))
+        log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
+        log(card)
+        return 0
 
     log("== phase 3: kernel against plain")
     log(f"tolerance {TOL:g}: {TOL_REASON}")
@@ -2991,6 +3425,10 @@ def main(argv=None) -> int:
     log("== phase 15: experiments and ahead-of-time serving")
     log(card_line())
     experiments = run_experiments(device)
+
+    log("== phase 16: mixed precision and the ResNet image model")
+    log(card_line())
+    precision = run_precision(device, gen)
     k1_by_phase = {
         "4": launches,
         "9": sum(r["launches"] for r in titanic["served"].values()),
@@ -2998,7 +3436,8 @@ def main(argv=None) -> int:
         "12": resume["served"]["launches"],
         "13": orders["mimic"]["served"]["launches"],
         "14": sum(r["launches"] for r in dropin["served"].values()),
-        "15": experiments["artifact"]["k1_launches"]}
+        "15": experiments["artifact"]["k1_launches"],
+        "16": precision["served"]["launches"]}
     k2_by_phase = {
         "6": runs["Adam8bit"]["launches"],
         "12": sum(resume["resume"][kind]["k2_launches"]
@@ -3006,7 +3445,9 @@ def main(argv=None) -> int:
         "13": orders["mimic"]["k2_launches"] + sum(
             r["k2_launches"] for r in orders["featurewise"].values()),
         "15": sum(experiments[k]["k2_launches"]
-                  for k in ("sweep", "kfold", "trace"))}
+                  for k in ("sweep", "kfold", "trace")),
+        "16": precision["mimic_bf16"]["bf16"]["k2_launches"]
+        + precision["images"]["k2_launches"]}
 
     main_b = mimic[SERVING_BATCH]
     entry = {
@@ -3051,6 +3492,10 @@ def main(argv=None) -> int:
             "max_abs_err", "batch", "ms", "plain_ms", "bound_ms",
             "bound_by")} for label, r in dropin["served"].items()},
         "experiments": experiments["artifact"],
+        "precision": {k: precision["served"][k] for k in (
+            "pipeline", "requests", "launches", "launches_per_request",
+            "max_abs_err", "batch", "ms", "plain_ms", "bound_ms",
+            "bound_by")},
     }
     step = adam["times"]["mimic_step"]
     adam_entry = {
@@ -3093,6 +3538,13 @@ def main(argv=None) -> int:
             "featurewise_update": orders["featurewise_adam"]},
         "experiments": {k: {n: experiments[k][n] for n in (
             "k2_launches", "steps")} for k in ("sweep", "kfold", "trace")},
+        "precision": {
+            "mimic_bf16": {k: precision["mimic_bf16"]["bf16"][k] for k in (
+                "k2_launches", "steps")},
+            "images": {dtype: {k: r[k] for k in (
+                "k2_launches", "steps", "k2_launches_per_step", "leaves")}
+                for dtype, r in precision["images"]["runs"].items()},
+            "resnet_update": precision["resnet_update"]},
     }
     log("earlier designs (not measured in this run): "
         + json.dumps(EARLIER))
@@ -3106,6 +3558,7 @@ def main(argv=None) -> int:
     log("orders: " + json.dumps(orders))
     log("dropin: " + json.dumps(dropin))
     log("experiments: " + json.dumps(experiments))
+    log("precision: " + json.dumps(precision))
     log(json.dumps({"kernels": [entry, adam_entry]}))
     log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
     log(card)

@@ -31,7 +31,9 @@ loaders (``data.streaming``, ``data.disk`` over the native reader of
 artifacts (``export_compiled`` / ``load_compiled``, ``torch.export``
 programs) and the experiment surface: ``on_epoch`` progress callbacks,
 ``experiments.sweep_fit_best`` and ``fold_history``, streamed experiments
-(``experiments_stream``) and ``utils.profiling``.
+(``experiments_stream``) and ``utils.profiling``; mixed precision
+(``MultiModN(compute_dtype=...)``, ``Adam(state_dtype=...)``) and the
+ResNet-18 image encoder (``encoders.ResNet``) with mask-aware chains.
 """
 from multimodn_tpu_torch.convert import opt_state_from_jax, params_from_jax
 from multimodn_tpu_torch.core.history import MultiModNHistory

@@ -6,9 +6,10 @@ payload keys (``{'epoch', 'model_state_dict', 'auc_bac_val_cum'}``,
 ``mimic_single_task_pipeline.py:151-158``), plus the optimizer state when
 asked. The JAX package writes the same parameter payload, so a parameter
 file written by either package loads in the other. Optimizer states cross as
-numpy too; ``float8_e4m3fn`` moment codes (``Adam8bit``'s default) are
-stored as ``uint8`` views, since numpy has no such type, and the optimizer's
-``fmt`` turns them back into codes on load. Writes are atomic (a tmp file,
+numpy too; ``float8_e4m3fn`` moment codes (``Adam8bit``'s default) and
+bfloat16 moments (``Adam(state_dtype=torch.bfloat16)``) are stored as
+``uint8`` and ``uint16`` views, since numpy has no such types, and the
+optimizer's state turns them back on load. Writes are atomic (a tmp file,
 then ``os.replace``).
 
 ``CheckpointManager`` keeps the best k checkpoints by score.
@@ -38,21 +39,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from multimodn_tpu_torch.convert import from_numpy_like, to_numpy
 from multimodn_tpu_torch.core.tree import tree_leaves, tree_map
 from multimodn_tpu_torch.interop import adapt_loader, adapt_optimizer
 
 
 def _to_numpy(tree):
-    """Tensors -> numpy copies; float8 codes as uint8 views."""
-    def leaf(t):
-        if not torch.is_tensor(t):
-            return t
-        t = t.detach()
-        if t.dtype == torch.float8_e4m3fn:
-            t = t.view(torch.uint8)
-        return t.cpu().numpy().copy()
-
-    return tree_map(leaf, tree)
+    """Tensors -> numpy copies; float8 codes as uint8 views, bfloat16
+    moments as uint16 views (``convert.VIEWED_DTYPES``)."""
+    return tree_map(lambda t: to_numpy(t) if torch.is_tensor(t) else t, tree)
 
 
 def _atomic_pickle(path: str, payload: dict):
@@ -98,7 +93,9 @@ def opt_state_from_numpy(optimizer, state: dict, params: dict) -> dict:
     """A numpy optimizer state (``_to_numpy``'s form) -> ``optimizer``'s
     state as tensors beside ``params``. Its keys, leaf shapes and types must
     be those of ``optimizer.init(params)``; an ``Adam8bit(fmt='fp8')``'s
-    ``uint8`` code views become ``float8_e4m3fn`` again."""
+    ``uint8`` code views become ``float8_e4m3fn`` again, an
+    ``Adam(state_dtype=torch.bfloat16)``'s ``uint16`` moment views (or the
+    JAX package's bfloat16 arrays) ``bfloat16``."""
     like = optimizer.init(params)
     if sorted(state) != sorted(like):
         raise ValueError(f"the stored optimizer state holds {sorted(state)}, "
@@ -117,9 +114,7 @@ def opt_state_from_numpy(optimizer, state: dict, params: dict) -> dict:
                                      f"missing")
                 leaves.append(None)
                 continue
-            t = torch.as_tensor(np.array(g), device=w.device)
-            if w.dtype == torch.float8_e4m3fn and t.dtype == torch.uint8:
-                t = t.view(torch.float8_e4m3fn)
+            t = from_numpy_like(g, w)
             if t.dtype != w.dtype or t.shape != w.shape:
                 raise ValueError(
                     f"optimizer state {key!r}: a stored {tuple(t.shape)} "

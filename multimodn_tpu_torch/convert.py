@@ -45,16 +45,44 @@ def _per_encoder(tree: dict) -> dict:
             "decoders": list(tree["decoders"])}
 
 
+# Dtypes numpy lacks, which cross as an unsigned view of their width: the
+# only form both numpy and torch hold bit for bit. numpy sees the JAX
+# package's arrays of them as ``ml_dtypes`` types of the same name.
+VIEWED_DTYPES = {torch.float8_e4m3fn: np.uint8, torch.bfloat16: np.uint16}
+
+
 def _tensor(leaf, device) -> torch.Tensor:
-    """A numpy or JAX array as a tensor on ``device``. float8 codes cross as
-    a uint8 view, the one form both numpy and torch hold bit for bit."""
+    """A numpy or JAX array as a tensor on ``device``; float8 codes and
+    bfloat16 moments keep their type (``VIEWED_DTYPES``)."""
     a = np.asarray(leaf)
-    if "float8" in str(a.dtype):
-        if str(a.dtype) != "float8_e4m3fn":
-            raise TypeError(f"unsupported 8-bit code type {a.dtype}")
-        return torch.as_tensor(np.array(a).view(np.uint8),
-                               device=device).view(torch.float8_e4m3fn)
+    name = str(a.dtype)
+    if "float8" in name and name != "float8_e4m3fn":
+        raise TypeError(f"unsupported 8-bit code type {a.dtype}")
+    for dtype, view in VIEWED_DTYPES.items():
+        if name == str(dtype).removeprefix("torch."):
+            return torch.as_tensor(np.array(a).view(view),
+                                   device=device).view(dtype)
     return torch.as_tensor(np.array(a), device=device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy copy; a dtype numpy lacks as its unsigned view
+    (``VIEWED_DTYPES``), which ``from_numpy_like`` turns back."""
+    t = t.detach()
+    if t.dtype in VIEWED_DTYPES:
+        t = t.view(getattr(torch, np.dtype(VIEWED_DTYPES[t.dtype]).name))
+    return t.cpu().numpy().copy()
+
+
+def from_numpy_like(a, like: torch.Tensor) -> torch.Tensor:
+    """``a`` (numpy, possibly ``to_numpy``'s unsigned view or the JAX
+    package's ``ml_dtypes`` array) as a tensor on ``like``'s device, viewed
+    back into ``like``'s dtype when that is one numpy lacks."""
+    t = _tensor(a, like.device)
+    view = VIEWED_DTYPES.get(like.dtype)
+    if view is not None and t.dtype == getattr(torch, np.dtype(view).name):
+        t = t.view(like.dtype)
+    return t
 
 
 def params_from_jax(tree: dict, device=None) -> dict:

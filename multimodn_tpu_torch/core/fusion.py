@@ -61,16 +61,23 @@ def init_chain_state(init_state, params: dict, batch: int, init_offset,
 
 
 def chain_step_skip(run: Callable, x, old_state, sample_mask, n_real, *,
-                    nan_skip: str):
-    """One encoder step's NaN-skip semantics. ``run(x)`` executes the encoder
-    on the NaN-zeroed input. Returns ``(state, ok, counted)``: the state
-    after the skip passthrough, the row-liveness scalar and the row's
-    sample-count increment."""
+                    nan_skip: str, mask_aware: bool = False):
+    """One encoder step's NaN-skip semantics. ``run(x, eff_mask)`` executes
+    the encoder on the NaN-zeroed input. A mask-aware encoder (one with
+    ``_accepts_sample_mask``, whose batch statistics must see only real,
+    present rows: ResNet's BatchNorm) gets ``eff_mask``, the sample mask
+    with the rows whose modality holds a NaN dropped (the sample mask
+    itself under ``nan_skip='none'``); any other encoder gets None (JAX
+    ``core/fusion.py:107-160``). Returns ``(state, ok, counted)``: the
+    state after the skip passthrough, the row-liveness scalar and the
+    row's sample-count increment."""
     one = torch.ones((), device=x.device)
     if nan_skip == "none":
-        return run(x), one, n_real
+        return run(x, sample_mask if mask_aware else None), one, n_real
     sample_has_nan = sample_missing(x)
-    new_state = run(torch.nan_to_num(x))
+    eff_mask = sample_mask * (~sample_has_nan).to(sample_mask.dtype) \
+        if mask_aware else None
+    new_state = run(torch.nan_to_num(x), eff_mask)
     if nan_skip == "batch":
         any_nan = (sample_has_nan & (sample_mask > 0)).any()
         ok = torch.where(any_nan, 0.0, 1.0).to(one)
@@ -110,10 +117,11 @@ def run_executions(encoders, init_state, params, data, sample_mask, *,
                    generator=None, widths=None):
     """Run the encoders in ``order``, one execution per ``(data_idx,
     enc_idx)`` pair: the loop every chain form shares. ``train`` turns on
-    the encoders' dropout, drawn from ``generator``. ``widths`` is the
-    switch chain's ``(fmax, per-encoder input widths)`` (``switch_widths``):
-    each input is then zero-padded to ``fmax`` and cut to its encoder's
-    width.
+    the encoders' dropout, drawn from ``generator``; a mask-aware encoder
+    also gets each step's effective sample mask (``chain_step_skip``).
+    ``widths`` is the switch chain's ``(fmax, per-encoder input widths)``
+    (``switch_widths``): each input is then zero-padded to ``fmax`` and cut
+    to its encoder's width.
 
     Returns ``(state0, states, state_change, ok, counted, n_real)``: the
     initial state and, per execution, its state after the skip
@@ -129,15 +137,20 @@ def run_executions(encoders, init_state, params, data, sample_mask, *,
         enc = encoders[enc_idx]
         old_state = state
 
-        def run(xv, _p=params["encoders"][enc_idx], _s=state, _enc=enc,
+        mask_aware = getattr(enc, "_accepts_sample_mask", False)
+
+        def run(xv, eff_mask, _p=params["encoders"][enc_idx], _s=state,
+                _enc=enc, _aware=mask_aware,
                 _w=None if widths is None else widths[1][enc_idx]):
             if _w is not None:
                 xv = _fit_width(xv, widths[0], _w)
-            return _enc.apply(_p, _s, xv, train=train, generator=generator)
+            kw = {"sample_mask": eff_mask} if _aware else {}
+            return _enc.apply(_p, _s, xv, train=train, generator=generator,
+                              **kw)
 
         state, ok, counted = chain_step_skip(
             run, data[data_idx], old_state, sample_mask, n_real,
-            nan_skip=nan_skip)
+            nan_skip=nan_skip, mask_aware=mask_aware)
         states.append(state)
         sc.append(masked_mean_sq_diff(state, old_state, sample_mask))
         ok_exec.append(ok)

@@ -9,7 +9,7 @@ between the two packages is a copy. Initialization follows
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -18,14 +18,57 @@ import torch.nn.functional as F
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names
     another. Without a GPU the caller must ask for the CPU explicitly; the
-    work is never moved to the CPU behind the caller's back."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    work is never moved to the CPU behind the caller's back.
+
+    This is where the port's CUDA path starts, so a CUDA device also turns
+    off cuBLAS's reduced-precision reductions for half-precision GEMMs
+    (``exact_half_reductions``)."""
+    if device is None and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the plain "
             "PyTorch path on the CPU")
-    return torch.device("cuda")
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda":
+        exact_half_reductions()
+    return device
+
+
+def exact_half_reductions():
+    """A bf16 or fp16 GEMM on the card accumulates in fp32 and rounds once,
+    as the JAX package's ``preferred_element_type=float32`` products do.
+    PyTorch's default lets cuBLAS reduce split-K partial sums in the half
+    type, which rounds more than once."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+
+
+HALF_DTYPES = (torch.bfloat16, torch.float16)
+
+
+def resolve_dtype(dtype) -> Optional[torch.dtype]:
+    """A model's ``compute_dtype`` as a torch dtype: None stays None (fp32
+    everywhere, the reference's numerics); a dtype name (``'bfloat16'``,
+    ``'float16'``, ``'float32'``), a torch dtype, or any object whose
+    ``name`` or ``__name__`` is such a name (numpy and JAX dtypes) maps to
+    the torch floating dtype of that name."""
+    if dtype is None:
+        return None
+    out = dtype
+    if not isinstance(dtype, torch.dtype):
+        name = dtype if isinstance(dtype, str) else (
+            getattr(dtype, "name", None) or getattr(dtype, "__name__", None))
+        out = getattr(torch, str(name).removeprefix("torch."), None)
+    if not isinstance(out, torch.dtype) or not out.is_floating_point:
+        raise ValueError(f"compute_dtype must name a floating dtype, got "
+                         f"{dtype!r}")
+    return out
+
+
+def dtype_name(dtype) -> Optional[str]:
+    """``resolve_dtype(dtype)``'s name as the JAX package writes it into an
+    export (``'bfloat16'``), or None."""
+    dtype = resolve_dtype(dtype)
+    return None if dtype is None else str(dtype).removeprefix("torch.")
 
 
 def uniform_init(generator: torch.Generator, shape, bound: float,
@@ -48,9 +91,18 @@ def dense_init(generator: torch.Generator, in_dim: int, out_dim: int,
 def dense_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     """``y = x @ w + b`` over any leading batch dims. The product accumulates
     in float32, is cast to the activation dtype, then the bias is added in
-    that dtype (the JAX package's order)."""
-    y = torch.matmul(x.float(), params["w"].float())
-    return y.to(x.dtype) + params["b"].to(x.dtype)
+    that dtype (the JAX package's order).
+
+    On the card, bf16 or fp16 activations and weights of that dtype run a
+    half-precision GEMM that accumulates in fp32 and rounds its output once
+    (``exact_half_reductions``), which is the same product; elsewhere the
+    operands are upcast and the fp32 product is cast."""
+    w = params["w"]
+    if x.is_cuda and x.dtype in HALF_DTYPES and w.dtype == x.dtype:
+        y = torch.matmul(x, w)
+    else:
+        y = torch.matmul(x.float(), w.float()).to(x.dtype)
+    return y + params["b"].to(x.dtype)
 
 
 def mlp_init(generator: torch.Generator, dims: Sequence[int],

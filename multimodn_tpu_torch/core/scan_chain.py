@@ -13,9 +13,11 @@ PyTorch runs eagerly, so an order is just a list, and both chains are
 ``fusion.forward_chain`` on the batch's ``(data_idx, enc_idx)`` pairs, whose
 row mapping is the traced chains' own: the last execution of an encoder
 writes its row, and a row that never executed carries the initial state
-(JAX ``_scatter_rows``). The two names below serve callers of the JAX
-package's function-level API. Parameters stay in
-per-encoder storage; ``convert`` unstacks the JAX package's stacked trees.
+(JAX ``_scatter_rows``), and a mask-aware encoder gets the unrolled
+chain's effective sample mask (JAX ``scan_chain.py:107``, ``:211-225``).
+The two names below serve callers of the JAX package's function-level
+API. Parameters stay in per-encoder storage; ``convert`` unstacks the JAX
+package's stacked trees.
 """
 from __future__ import annotations
 

@@ -106,7 +106,7 @@ def make_batch_loss_fn(encoders, decoders, init_state, criterion,
                        order: Sequence[Tuple[int, int]], nan_skip: str,
                        chain: str = "unrolled", presence_dropout: float = 0.0,
                        presence_penalty: float = 0.0, shuffle: bool = False,
-                       per_batch_seq: bool = False):
+                       per_batch_seq: bool = False, compute_dtype=None):
     """``loss_fn(params, data, targets, sample_mask, generator, init_offset,
     train, drop=None, seq=None, perm=None) -> (loss, aux)`` for one padded
     batch.
@@ -135,7 +135,15 @@ def make_batch_loss_fn(encoders, decoders, init_state, criterion,
     else drawn from ``generator`` (``draw_presence_dropout``);
     ``presence_penalty`` (lambda) adds ``lambda * presence_penalty_term`` on
     the injected data. It needs a static order that repeats no encoder. The
-    history's grids do not include it."""
+    history's grids do not include it.
+
+    ``compute_dtype`` (a torch dtype, or None for fp32): mixed precision as
+    in the JAX package (``core/step.py:195-202``). Every floating parameter
+    leaf and modality array is cast to it before the presence dropout, in
+    training and evaluation alike; NaN survives the cast, so the skip still
+    sees it. Losses, metrics and penalties reduce in fp32 (``decode_grid``,
+    ``masked_mean_sq_diff``), and the casts are differentiable, so the
+    gradients reach the fp32 master parameters as fp32."""
     if chain not in ("unrolled", "scan", "switch"):
         raise ValueError(f"chain must be 'unrolled', 'scan' or 'switch', "
                          f"got {chain!r}")
@@ -168,8 +176,14 @@ def make_batch_loss_fn(encoders, decoders, init_state, criterion,
             pairs = [pairs[int(i)] for i in perm]
         return pairs
 
+    def cast(t):
+        return t.to(compute_dtype) if t.is_floating_point() else t
+
     def loss_fn(params, data, targets, sample_mask, generator, init_offset,
                 train: bool, drop=None, seq=None, perm=None):
+        if compute_dtype is not None:
+            params = tree_map(cast, params)
+            data = tuple(cast(x) for x in data)
         if presence_dropout and train:
             if drop is None:
                 if generator is None:

@@ -15,6 +15,7 @@ from multimodn_tpu_torch.encoders.recurrent import (
     RNNEncoder,
     RNNFeatureEncoder,
 )
+from multimodn_tpu_torch.encoders.resnet import ResNet
 from multimodn_tpu_torch.encoders.slp import (
     LinearEncoder,
     LogisticEncoder,
@@ -34,6 +35,7 @@ __all__ = [
     "RNNEncoder",
     "LSTMFeatureEncoder",
     "RNNFeatureEncoder",
+    "ResNet",
     "TransformerEncoder",
     "ViTEncoder",
 ]

@@ -41,7 +41,7 @@ from multimodn_tpu_torch.core.scan_chain import encoders_homogeneous
 from multimodn_tpu_torch.core.history import MultiModNHistory
 from multimodn_tpu_torch.core.losses import resolve_criterion
 from multimodn_tpu_torch.core.metrics import get_performance_metrics
-from multimodn_tpu_torch.core.nn import resolve_device
+from multimodn_tpu_torch.core.nn import resolve_device, resolve_dtype
 from multimodn_tpu_torch.core.state import (
     InitState,
     StaticInitState,
@@ -102,7 +102,18 @@ class MultiModN:
     chains give the same results on the same order. Parameters stay in
     per-encoder storage whatever the chain. ``scan_unroll`` is stored and
     exported for the JAX package, where it unrolls the batch scan; it has
-    no effect here."""
+    no effect here.
+
+    ``compute_dtype``: None (fp32 everywhere, the reference's numerics) or
+    a dtype such as ``'bfloat16'`` (a name, a torch dtype or the JAX
+    package's dtype object), stored as given, as the JAX package stores it.
+    The batch loss of every training and evaluation call (``train_epoch``,
+    ``test``, ``fit``, ``fit_best`` and every fit built on them) runs in it:
+    parameters and modalities are cast inside the loss, products accumulate
+    in fp32 (``core.nn.dense_apply``), losses and metrics reduce in fp32,
+    and the master parameters and optimizer state stay fp32. ``predict``,
+    ``predict_proba``, ``get_states``, ``fused_forward`` and
+    ``export_compiled`` stay fp32, as in the JAX package."""
 
     def __init__(
         self,
@@ -121,6 +132,7 @@ class MultiModN:
         chain_mode: str = "auto",
         scan_unroll=None,
         device=None,
+        compute_dtype=None,
     ):
         self.device = resolve_device(device)
         self.state_size = state_size
@@ -161,6 +173,8 @@ class MultiModN:
         self.presence_penalty = float(presence_penalty)
         self.chain_mode = chain_mode
         self.scan_unroll = scan_unroll
+        resolve_dtype(compute_dtype)        # refuse a non-float dtype now
+        self.compute_dtype = compute_dtype
         self._chain_plan()      # chain_mode='scan' needs identical encoders
         self._seed = seed
         # The per-call shuffle cadence's order stream (chain_mode='unrolled').
@@ -524,7 +538,8 @@ class MultiModN:
             self.err_penalty, self.state_change_penalty, order, self.nan_skip,
             chain, presence_dropout=self.presence_dropout,
             presence_penalty=self.presence_penalty, shuffle=shuffle,
-            per_batch_seq=per_batch)
+            per_batch_seq=per_batch,
+            compute_dtype=resolve_dtype(self.compute_dtype))
         return loss_fn, shuffle
 
     def _use_optimizer(self, optimizer: Optimizer):
@@ -881,6 +896,7 @@ class MultiModN:
         # Models pickled before the order options existed ran unrolled.
         self.__dict__.setdefault("chain_mode", "unrolled")
         self.__dict__.setdefault("scan_unroll", None)
+        self.__dict__.setdefault("compute_dtype", None)
         self.__dict__.setdefault("_shuffle_rng", random.Random(self._seed))
         self.params = params_from_jax(self.params, self.device)
 

@@ -24,6 +24,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
+from multimodn_tpu_torch.core.nn import resolve_dtype
 from multimodn_tpu_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 from multimodn_tpu_torch.ops import fused_adam as fa
 
@@ -102,22 +103,33 @@ class Optimizer:
 class Adam(Optimizer):
     """``torch.optim.Adam`` with per-encoder-group structural skip (module
     docstring); with no skip its math is torch's: bias-corrected moments,
-    eps outside the square root."""
+    eps outside the square root.
+
+    ``state_dtype``: the storage dtype of the moments (e.g.
+    ``torch.bfloat16``; None keeps the parameters' fp32, torch's math). A
+    step reads each moment into the gradient's dtype, updates it there and
+    stores it back in ``state_dtype`` (JAX ``optim.py:96-110``), which cuts
+    the state's bytes at a small, not torch-exact, numerical difference."""
 
     def __init__(self, learning_rate: float,
                  betas: Tuple[float, float] = (0.9, 0.999),
-                 eps: float = 1e-8):
+                 eps: float = 1e-8, state_dtype=None):
         self.lr, (self.b1, self.b2), self.eps = learning_rate, betas, eps
+        self.state_dtype = resolve_dtype(state_dtype)
 
     def init(self, params):
         t, t_enc = _step_counts(params)
-        return {"m": tree_map(torch.zeros_like, params),
-                "v": tree_map(torch.zeros_like, params),
+
+        def zeros(p):
+            return torch.zeros_like(p, dtype=self.state_dtype)
+
+        return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
                 "t": t, "t_enc": t_enc}
 
-    def _leaf(self, c12, gate, g, m, v):
+    def _leaf(self, c12, gate, g, m_stored, v_stored):
         lr, b1, b2, eps = self.lr, self.b1, self.b2, self.eps
         c1, c2 = c12[0], c12[1]
+        m, v = m_stored.to(g.dtype), v_stored.to(g.dtype)
         if gate is None:
             m_new = b1 * m + (1 - b1) * g
             v_new = b2 * v + (1 - b2) * g * g
@@ -127,7 +139,7 @@ class Adam(Optimizer):
             m_new = m + gate * (1 - b1) * (g - m)
             v_new = v + gate * (1 - b2) * (g * g - v)
             upd = -lr * gate * (m_new / c1) / (torch.sqrt(v_new / c2) + eps)
-        return upd, m_new, v_new
+        return upd, m_new.to(m_stored.dtype), v_new.to(v_stored.dtype)
 
     def update(self, grads, state, params=None, enc_gates=None):
         (upd, m, v), t, t_enc = _drive(

@@ -5,7 +5,8 @@ twin of ``multimodn_tpu/serving.py``).
 every decoder after each step. ``export_model`` / ``load_model`` write and
 read the JAX package's format, ``config.json`` + ``params.npz``, so a model
 exported by either package loads in the other. It rebuilds the MLP-family,
-SLP, recurrent and attention encoders and the dense decoders.
+SLP, recurrent, attention and ResNet encoders, the dense decoders and the
+model's ``compute_dtype``.
 ``export_compiled`` / ``load_compiled`` write and serve an ahead-of-time
 artifact: the model's whole forward with its parameters inside, a
 ``torch.export`` program (``.pt2``) that loads without this package.
@@ -23,7 +24,8 @@ import torch
 from multimodn_tpu_torch import decoders as dec_mod
 from multimodn_tpu_torch import encoders as enc_mod
 from multimodn_tpu_torch.convert import params_from_jax
-from multimodn_tpu_torch.core.nn import activation_name, resolve_device
+from multimodn_tpu_torch.core.nn import activation_name, dtype_name, \
+    resolve_device
 from multimodn_tpu_torch.core.state import StaticInitState
 from multimodn_tpu_torch.core.step import make_forward_fn
 from multimodn_tpu_torch.core.tree import tree_leaves, tree_unflatten
@@ -123,7 +125,7 @@ def _module_spec(m) -> dict:
     spec = {"class": type(m).__name__}
     for attr in ("state_size", "n_features", "hidden_layers", "dropout_rate",
                  "n_classes", "unbatched_compat", "embed_dim", "n_heads",
-                 "n_layers", "mlp_ratio", "chunk",
+                 "n_layers", "mlp_ratio", "chunk", "freeze",
                  # ViTEncoder's geometry, without which it would be rebuilt
                  # for its constructor's default (32, 32) images.
                  "image_size", "patch_size", "channels"):
@@ -155,7 +157,7 @@ def export_model(model: MultiModN, directory: str) -> str:
         "ones_initialized_counts": model.ones_initialized_counts,
         "presence_penalty": model.presence_penalty,
         "presence_dropout": model.presence_dropout,
-        "compute_dtype": None,
+        "compute_dtype": dtype_name(model.compute_dtype),
         "scan_unroll": model.scan_unroll,
         "seed": model._seed,
         "encoders": [_module_spec(e) for e in model.encoders],
@@ -177,8 +179,8 @@ def _build(spec: dict, registry, kind: str):
     cls = getattr(registry, spec["class"], None)
     if cls is None:
         raise NotImplementedError(
-            f"{kind} class {spec['class']!r} is not ported yet; this package "
-            f"rebuilds {', '.join(registry.__all__)} (ROADMAP.md Queue A)")
+            f"{kind} class {spec['class']!r} is not one this package "
+            f"rebuilds: {', '.join(registry.__all__)}")
     kwargs = {}
     for name in inspect.signature(cls.__init__).parameters:
         if name == "self":
@@ -203,10 +205,6 @@ def load_model(directory: str, device=None) -> MultiModN:
     package, on ``device`` (CUDA unless the caller names another)."""
     with open(os.path.join(directory, "config.json")) as f:
         config = json.load(f)
-    if config.get("compute_dtype") not in (None, "float32"):
-        raise NotImplementedError(
-            f"compute_dtype={config['compute_dtype']!r}: mixed precision is "
-            "not ported yet (ROADMAP.md Queue A, 'Mixed precision')")
     encoders = [_build(s, enc_mod, "encoder") for s in config["encoders"]]
     decoders = [_build(s, dec_mod, "decoder") for s in config["decoders"]]
     with np.load(os.path.join(directory, "params.npz")) as npz:
@@ -232,6 +230,7 @@ def load_model(directory: str, device=None) -> MultiModN:
         chain_mode=config.get("chain_mode", "auto"),
         scan_unroll=config.get("scan_unroll"),
         device=device,
+        compute_dtype=config.get("compute_dtype"),
     )
     model.load_state_dict(_unflatten(flat))
     return model

@@ -9,7 +9,9 @@ the CPU, and K2's launches at a featurewise chain's leaf count; torch
 objects (optimizer, ``DataLoader``, loss) training on the card bit-equal to
 the port's own, and their ``F.relu`` model served through K1; an
 ``Adam8bit`` seed sweep through K2 bit-equal to each seed's ``fit_best``,
-and an ahead-of-time artifact on the card against K1.
+and an ahead-of-time artifact on the card against K1; K2 on the 102 leaves
+of a ResNet-18, bf16 and fp16 GEMMs against the float form, and one step of
+a bf16 MIMIC model and of a ResNet model on the card against the CPU.
 
 Every test here carries the ``cuda`` marker and skips without a GPU. The
 file imports neither JAX nor the JAX package, so it runs on a GPU machine
@@ -87,7 +89,11 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("the CUDA kernel needs an NVIDIA GPU; chip_smoke.py runs "
                     "it against the plain version on one")
+    # fp32 everywhere, as the plain versions and the CPU compute it: no TF32
+    # in cuBLAS or in cuDNN's convolutions (PyTorch allows it in cuDNN by
+    # default), as chip_smoke.py's exact_math does.
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -872,3 +878,175 @@ def test_compiled_artifact_on_cuda_matches_k1(cuda, tmp_path):
         for g, w in zip(got, want):
             assert g.device.type == "cuda"
             torch.testing.assert_close(g, w, rtol=0, atol=ATOL)
+
+
+def _resnet_leaves(device, fmt):
+    """K2's leaves for one Adam8bit step of a ResNet-18 encoder (state 50):
+    every weight after two plain steps with a fresh gradient, and the
+    BatchNorm statistics as training gives them, with zero gradients and
+    zero moments."""
+    params = tenc.ResNet(state_size=50).init(torch.Generator().manual_seed(0),
+                                             device)
+    stats = {id(bn[k]) for bn in _bn_dicts(params) for k in ("mean", "var")}
+    c12 = torch.tensor([1 - B1 ** 3, 1 - B2 ** 3], device=device)
+    leaves = []
+    for i, leaf in enumerate(tree_leaves(params)):
+        shape = tuple(leaf.shape)
+        if id(leaf) in stats:
+            qdt = fa.code_dtype(fmt)
+            zeros = [torch.zeros(shape, dtype=qdt, device=device),
+                     torch.zeros(fa.scale_shape(shape), device=device)] * 2
+            leaves.append((leaf.clone(), torch.zeros_like(leaf), *zeros, c12,
+                           None))
+        else:
+            p, g, mq, ms, vq, vs, _c = _adam_leaf(shape, fmt, device, i)
+            leaves.append((p, g, mq, ms, vq, vs, c12, None))
+    return leaves, [id(leaf) in stats for leaf in tree_leaves(params)]
+
+
+def _bn_dicts(params):
+    yield params["stem"]["bn"]
+    for blocks in params["stages"]:
+        for block in blocks:
+            for conv in block.values():
+                yield conv["bn"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["fp8", "int8"])
+def test_fused_adam_matches_plain_on_resnet_leaves(cuda, fmt):
+    """One ``multi_leaf_update`` over the 102 leaves of a ResNet-18 encoder:
+    4-D HWIO kernels up to (3, 3, 512, 512) (4,608 rows of 512), the 1-D
+    BatchNorm leaves and the head, in 3 launches of up to 40 leaves; every
+    parameter, code and scale bit-equal to the plain version, and the
+    statistics (zero gradient, zero moments) left exactly as they were."""
+    leaves, is_stat = _resnet_leaves(cuda, fmt)
+    shapes = [tuple(leaf[0].shape) for leaf in leaves]
+    assert len(shapes) == 102 and (3, 3, 512, 512) in shapes
+    want = fa.multi_leaf_update_ref(leaves, lr=LR, b1=B1, b2=B2, eps=EPS,
+                                    fmt=fmt)
+    got = [(l[0].clone(), l[1], *[t.clone() for t in l[2:6]], *l[6:])
+           for l in leaves]
+    before = fa.FUSED_ADAM.launches
+    fa.multi_leaf_update(got, lr=LR, b1=B1, b2=B2, eps=EPS, fmt=fmt)
+    torch.cuda.synchronize()
+    assert fa.FUSED_ADAM.launches - before == \
+        fa.launches_per_update(shapes) == 3
+    for leaf, w, orig, stat in zip(got, want, leaves, is_stat):
+        for a, b in zip((leaf[0],) + leaf[2:6], w):
+            assert torch.equal(_bits(a), _bits(b))
+        if stat:
+            assert torch.equal(_bits(leaf[0]), _bits(orig[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_half_gemm_on_cuda_matches_the_float_form(cuda, dtype):
+    """``dense_apply`` on bf16 (fp16) operands on the card runs one
+    half-precision GEMM with fp32 accumulation: the entry point turned the
+    reduced-precision reductions off, and the product equals the fp32
+    product of the upcast operands, cast, within the two roundings' sum:
+    one spacing of the half type (2**-7 relative for bf16, 2**-10 for
+    fp16) plus what two fp32 summation orders can differ by, 2 K 2**-24
+    times the sum of the terms' magnitudes (which dominates near 0); most
+    elements are equal. Half-precision accumulation over K = 1024 would
+    break that bound by orders of magnitude. The bias is added after the
+    cast, in the half type."""
+    from multimodn_tpu_torch.core import nn as tnn
+    assert tnn.resolve_device("cuda").type == "cuda"
+    assert not torch.backends.cuda.matmul \
+        .allow_bf16_reduced_precision_reduction
+    assert not torch.backends.cuda.matmul \
+        .allow_fp16_reduced_precision_reduction
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((1024, 1024), generator=gen, device=cuda).to(dtype)
+    w = torch.randn((1024, 256), generator=gen, device=cuda).to(dtype)
+    b = torch.randn((256,), generator=gen, device=cuda).to(dtype)
+    product = tnn.dense_apply({"w": w, "b": torch.zeros_like(b)}, x)
+    want = torch.matmul(x.float(), w.float()).to(dtype)
+    assert product.dtype == dtype
+    spacing = 2.0 ** (-7 if dtype == torch.bfloat16 else -10)
+    magnitude = torch.matmul(x.float().abs(), w.float().abs())
+    bound = spacing * want.float().abs() + 2 * 1024 * 2.0 ** -24 * magnitude
+    assert ((product.float() - want.float()).abs() <= bound).all()
+    assert (product == want).float().mean() > 0.9
+    assert torch.equal(tnn.dense_apply({"w": w, "b": b}, x), product + b)
+
+
+@pytest.mark.cuda
+def test_bf16_training_step_on_cuda_matches_cpu(cuda):
+    """The MIMIC model with ``compute_dtype='bfloat16'``: one Adam8bit step
+    from the same weights on the same batch on both devices. The card runs
+    bf16 GEMMs and K2, the CPU the upcast products and K2's plain version;
+    both accumulate in fp32 and round to bf16, so an activation may round
+    to the neighbouring bf16 number, and a gradient near 0 may take
+    opposite signs. The first step moves a parameter by lr * m_hat /
+    sqrt(v_hat): lr in fp32, up to 1.1 lr through the fp8 codes (m rounded
+    by up to 2**-4, sqrt(v) by 2**-5), so parameters agree within 2.2 lr,
+    and the masters stay fp32."""
+    def model(device):
+        return MultiModN(
+            50, [tenc.MIMICMLPEncoder(50, w, (32, 32), 0.0)
+                 for w in (10, 1024, 768, 99)],
+            [tdec.MLPDecoder(50, (32, 32), 2) for _ in range(2)], 1.0, 0.0,
+            seed=4, device=device, compute_dtype="bfloat16")
+    gpu, cpu = model(cuda), model("cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.default_rng(1)
+    X = rng.normal(size=(16, 1901)).astype(np.float32)
+    X[::4, 10:1034] = np.nan
+    y = (X[:, :2] > 0).astype(np.int64)
+    ds = PartitionDataset(X, y, [10, 1024, 768, 99])
+    for m in (gpu, cpu):
+        m.train_epoch(ArrayLoader(ds, 16), Adam8bit(LR), "cross_entropy")
+    torch.cuda.synchronize()
+    assert all(p.dtype == torch.float32 for p in tree_leaves(gpu.params))
+    diffs = np.concatenate([np.abs(a - b).reshape(-1) for a, b in zip(
+        tree_leaves(gpu.state_dict()), tree_leaves(cpu.state_dict()))])
+    assert diffs.max() <= 2.2 * LR
+
+
+@pytest.mark.cuda
+def test_resnet_model_step_on_cuda_matches_cpu(cuda):
+    """A ResNet-18 (64 x 64 images, a NaN image, a padded row) beside an
+    MLP encoder: one Adam step on both devices in fp32 (cuDNN and the CPU
+    convolve in other orders, so a gradient near 0 may take opposite
+    signs; the first step moves a parameter by at most lr, so parameters
+    agree within 2 lr plus the rounding of the parameters' own update,
+    < 1e-6), the statistics untouched on the card, and, before the step,
+    evaluation-mode ``predict_proba`` within 1e-4."""
+    def model(device):
+        return MultiModN(8, [tenc.ResNet(state_size=8),
+                             tenc.MLPEncoder(8, 6, (16,))],
+                         [tdec.LogisticDecoder(8)], 1.0, 0.0, seed=4,
+                         device=device)
+    gpu, cpu = model(cuda), model("cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.default_rng(2)
+
+    class Images:
+        img = rng.normal(size=(7, 64, 64, 3)).astype(np.float32)
+        img[2, 5, 5, 0] = np.nan
+        x = rng.normal(size=(7, 6)).astype(np.float32)
+        y = (x[:, 0] > 0).astype(np.int64)[:, None]
+
+        def __len__(self):
+            return 7
+
+        def arrays(self):
+            return [self.img, self.x], self.y, None
+
+    def stem_mean():
+        return gpu.params["encoders"][0]["stem"]["bn"]["mean"]
+
+    x = [Images.img[[0, 1, 3]], Images.x[[0, 1, 3]]]
+    for g, c in zip(gpu.predict_proba(x), cpu.predict_proba(x)):
+        np.testing.assert_allclose(g, c, rtol=0, atol=1e-4)
+    before = stem_mean().clone()
+    for m in (gpu, cpu):
+        m.train_epoch(ArrayLoader(Images(), 8), Adam(LR), "cross_entropy")
+    torch.cuda.synchronize()
+    assert torch.equal(stem_mean(), before)
+    diffs = np.concatenate([np.abs(a - b).reshape(-1) for a, b in zip(
+        tree_leaves(gpu.state_dict()), tree_leaves(cpu.state_dict()))])
+    assert diffs.max() <= 2 * LR + 1e-6

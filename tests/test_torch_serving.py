@@ -205,20 +205,68 @@ def test_port_export_loads_in_jax(tmp_path):
 
 
 def test_load_model_rejects_unported_classes(tmp_path):
-    """An export naming the JAX package's ``ResNet`` image encoder, which
-    is not ported: its spec is written as the JAX ``export_model`` writes
-    one (a real ResNet-18 export holds ~11 M parameters)."""
+    """An export naming an encoder class neither package defines (a user's
+    own class, which ``export_model`` writes by name as the JAX package
+    does) is refused by name."""
     import json
     jm = jmm.MultiModN(4, [jenc.MLPEncoder(4, 6, (5,))],
                        [jdec.LogisticDecoder(4)], 1.0, 0.0)
     jmm.export_model(jm, str(tmp_path))
     path = tmp_path / "config.json"
     config = json.loads(path.read_text())
-    config["encoders"][0] = {"class": "ResNet", "state_size": 4,
-                             "n_features": None, "freeze": False}
+    config["encoders"][0] = {"class": "SpectrogramEncoder", "state_size": 4,
+                             "n_features": 6}
     path.write_text(json.dumps(config))
-    with pytest.raises(NotImplementedError, match="'ResNet'"):
+    with pytest.raises(NotImplementedError, match="'SpectrogramEncoder'"):
         tmm.load_model(str(tmp_path), device="cpu")
+
+
+def test_jax_bf16_export_loads_and_answers(tmp_path):
+    """A JAX model with ``compute_dtype='bfloat16'``: the port's
+    ``load_model`` keeps the dtype and answers as the JAX model does, in
+    fp32 (the forward paths ignore the compute dtype), and its own export
+    loads back into JAX with the dtype."""
+    jm = _jax_mimic(seed=7, compute_dtype="bfloat16")
+    jmm.export_model(jm, str(tmp_path / "jax"))
+    tm = tmm.load_model(str(tmp_path / "jax"), device="cpu")
+    assert tm.compute_dtype == "bfloat16"
+    x = _requests(1, seed=12)[0]
+    for g, w in zip(tm.predict_proba(x), jm.predict_proba(x)):
+        assert g.dtype == np.float32
+        _close(g, w)
+    _states, outs = tm.fused_forward(x)
+    _jstates, jouts = jm.fused_forward(x, use_interpret=True)
+    for g, w in zip(outs, jouts):
+        _close(g.numpy(), w)
+    tmm.export_model(tm, str(tmp_path / "port"))
+    assert jmm.load_model(str(tmp_path / "port")).compute_dtype == \
+        "bfloat16"
+
+
+def test_jax_resnet_export_loads_and_answers(tmp_path):
+    """A JAX model with a ``ResNet`` (``freeze=True``) beside an MLP
+    encoder: the port rebuilds it from the JAX export, HWIO kernels and
+    BatchNorm statistics included, and answers 32 x 32 images in
+    evaluation mode as the JAX model does (well inside 1e-5: eval-mode
+    BatchNorm reads stored statistics); the port's export loads back into
+    JAX."""
+    jm = jmm.MultiModN(4, [jenc.ResNet(state_size=4, freeze=True),
+                           jenc.MLPEncoder(4, 6, (5,))],
+                       [jdec.LogisticDecoder(4)], 1.0, 0.0, seed=2)
+    jmm.export_model(jm, str(tmp_path / "jax"))
+    tm = tmm.load_model(str(tmp_path / "jax"), device="cpu")
+    assert isinstance(tm.encoders[0], tenc.ResNet)
+    assert tm.encoders[0].freeze and tm.encoders[0].state_size == 4
+    rng = np.random.default_rng(13)
+    x = [rng.normal(size=(3, 32, 32, 3)).astype(np.float32),
+         rng.normal(size=(3, 6)).astype(np.float32)]
+    for g, w in zip(tm.predict_proba(x), jm.predict_proba(x)):
+        _close(g, w)
+    tmm.export_model(tm, str(tmp_path / "port"))
+    back = jmm.load_model(str(tmp_path / "port"))
+    assert back.encoders[0].freeze
+    for g, w in zip(back.predict_proba(x), jm.predict_proba(x)):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_state_dict_round_trips_through_jax(pair):
