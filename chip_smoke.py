@@ -9,12 +9,13 @@
     python3 chip_smoke.py --dropin-only
     python3 chip_smoke.py --experiments-only
     python3 chip_smoke.py --precision-only
+    python3 chip_smoke.py --parallel-only
 
 The first form is the smoke run; the second times phase 8 alone at another
 data size and depth, the third with every fold's batches streamed; the
 fourth runs the MNAR protocol grid alone, the fifth phase 13 alone, the
 sixth phase 14 alone, the seventh phase 15 alone, the eighth phase 16
-alone.
+alone, the ninth phase 17 alone.
 Phases, each fatal on failure:
 
 1. the card's name and power limit, torch and CUDA versions; TF32 off;
@@ -193,15 +194,44 @@ Phases, each fatal on failure:
    (masked BatchNorm), ``update_batch_stats`` then evaluation-mode
    ``predict_proba``, one fp32 step on the card against the CPU and
    evaluation outputs against the CPU;
-17. the earlier designs' times from PERF.md on a line of their own, the
+17. multi-GPU parity (``multimodn_tpu_torch.parallel``) on the one card,
+   the MIMIC model at full width (dropout 0.2) on 512 + 128 seeded rows
+   (30% of cells missing), batch 16, ``fit_best`` for 3 epochs with
+   ``Adam8bit``: (a) one rank in a NCCL group in this process,
+   ``MultiModN(mesh=make_mesh())`` under both ``dp_engine``s bit-equal to
+   the mesh-free run beside it (parameters, 8-bit states, scores, grids),
+   K2 once per step, steps/s of each; (b) two ranks on the card over
+   ``gloo`` (``parallel.dryrun.spawn``; NCCL refuses two ranks on one
+   device): a ``data`` axis of 2 under ``nan_skip`` 'sample' and 'batch'
+   (one batch's NaNs in the second rank's rows only), ``('data', 'model')
+   = (1, 2)``, and both meshes again with fp32 ``Adam``; the ranks'
+   replicas bit-equal, per-epoch loss grids against (a) (rtol 1e-5,
+   Adam8bit's later epochs rtol 1e-2), the fp32 ``Adam`` runs' parameters
+   too (rtol 1e-5, atol 1e-6), K2 launches per step (1, or 2 in the
+   cross-rank form),
+   steps/s and collective ms per step from ``utils.profiling.trace``; K2's
+   cross-rank form bit-equal to the plain update of the whole leaves,
+   sliced, on all 37 sharded MIMIC leaves in one call, on (4096, 1024)
+   split 2 ways and on a NaN row, timed with and without its gloo MAX;
+   (c) K1 serving the model-axis model's gathered weights, 8 requests,
+   2 launches each per rank, within 1e-4 of the plain chain; (d) a
+   fold-axis ``kfold_fit_best`` (2 folds) and a seed-axis
+   ``sweep_fit_best`` (2 seeds) over the two ranks, bit-equal to one
+   rank's; a 2-rank ``fit_best_resumable`` stopped after one epoch and
+   resumed on 2 ranks bit-equal to the uninterrupted run, and resumed on
+   one rank (elastic) with losses within rtol 1e-2; the same elastic
+   resume with fp32 ``Adam`` within rtol 1e-5 in every epoch's losses and
+   in its parameters (atol 1e-6);
+18. the earlier designs' times from PERF.md on a line of their own, the
    ``mnar``, ``transformer``, ``resume``, ``orders``, ``dropin``,
-   ``experiments`` and ``precision`` lines, one ``{"kernels": [...]}`` line
-   of this run's numbers (launches summed over every path that ran the
-   kernel, by phase in ``launches_by_phase``; K1's with ``titanic``,
-   ``mnar``, ``resumed``, ``orders``, ``dropin``, ``experiments`` and
-   ``precision`` blocks, K2's with ``resume``, ``orders``, ``experiments``
-   and ``precision`` blocks), the script's wall time, the card's line, and
-   last the ``{"ok": true, ...}`` line.
+   ``experiments``, ``precision`` and ``parallel`` lines, one
+   ``{"kernels": [...]}`` line of this run's numbers (launches summed over
+   every path that ran the kernel, by phase in ``launches_by_phase``; K1's
+   with ``titanic``, ``mnar``, ``resumed``, ``orders``, ``dropin``,
+   ``experiments``, ``precision`` and ``parallel`` blocks, K2's with
+   ``resume``, ``orders``, ``experiments``, ``precision`` and ``parallel``
+   blocks), the script's wall time, the card's line, and last the
+   ``{"ok": true, ...}`` line.
 
 ``--mnar-only`` runs phase 1 and the MNAR protocol grid alone at the
 published cohort scale (300 patients, 5 folds) for ``batch``, ``sample``
@@ -3242,6 +3272,572 @@ def run_precision(device, gen):
                         "images": t3 - t2}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: multi-GPU parity (parallel/, MultiModN(mesh=, dp_engine=)).
+# The card is one H100, so (a) runs a one-rank NCCL group in this process
+# and (b)-(d) two ranks on the same card over gloo (NCCL refuses two ranks
+# on one device), started by parallel.dryrun.spawn.
+# ---------------------------------------------------------------------------
+PAR_TRAIN, PAR_VAL, PAR_EPOCHS = 512, 128, 3
+PAR_FOLD_EPOCHS, PAR_SEEDS = 2, (0, 1)
+# Two ranks sum gradients and grids in another order than one, so runs on
+# different rank counts are held at the JAX package's mesh tolerance (rtol
+# 1e-5, atol 1e-6 on parameters). With fp32 Adam that holds in every epoch
+# and on the final parameters, on the data axis, on the model axis and for
+# the elastic resume (two ranks, then one). With Adam8bit it holds in the
+# first epoch only: a moment one ulp apart lands on the neighbouring 8-bit
+# code, which moves that parameter by up to lr/8 in a step, and the runs
+# drift apart (on the CPU, fp32 Adam stayed within 2e-7 over 3 epochs where
+# Adam8bit reached 1.3e-3), so later Adam8bit epochs and the Adam8bit
+# elastic resume are held at rtol 1e-2 in their losses, and their
+# parameters are not compared across rank counts: where a row's 8-bit v
+# code rounds to 0 under a nonzero m code, Adam8bit steps by m / eps, so
+# single parameters of runs that differ in their last bits end up far apart
+# (0.4 after 3 epochs on the card) while the losses stay within 1e-2.
+PAR_RTOL, PAR_ATOL, PAR_RTOL_8BIT = 1e-5, 1e-6, 1e-2
+ONE_RANK_BACKEND = "nccl"
+
+
+def expect_launches(what, got, want):
+    if got != want:
+        raise AssertionError(f"{what}: {got} launches, expected {want}")
+
+
+def parallel_arrays(seed=17, batch_mode=False):
+    """Seeded MIMIC-width train and val arrays. ``batch_mode``: complete
+    rows but for batch 0 of the training data, whose NaNs (modality 1) lie
+    only in rows 8-15, the second rank's rows of a 2-way data axis, and
+    batch 3's rows 0-3 (modality 2, the first rank's)."""
+    rng = np.random.default_rng(seed)
+    n, width = PAR_TRAIN + PAR_VAL, sum(MIMIC_WIDTHS)
+    X = rng.normal(size=(n, width)).astype(np.float32)
+    offsets = np.cumsum((0,) + MIMIC_WIDTHS[:-1])
+    w = np.zeros((width, MIMIC_TARGETS), np.float32)
+    for off in offsets:
+        w[off:off + 8] = rng.normal(size=(8, MIMIC_TARGETS))
+    y = (X @ w > 0).astype(np.int64)
+    if batch_mode:
+        o1, o2 = offsets[1], offsets[2]
+        X[8:16, o1:o1 + MIMIC_WIDTHS[1]] = np.nan
+        X[48:52, o2:o2 + MIMIC_WIDTHS[2]] = np.nan
+    else:
+        missing = rng.random((n, len(MIMIC_WIDTHS))) < MISSING_RATE
+        for e, (off, wd) in enumerate(zip(offsets, MIMIC_WIDTHS)):
+            X[missing[:, e], off:off + wd] = np.nan
+    return (X[:PAR_TRAIN], y[:PAR_TRAIN]), (X[PAR_TRAIN:], y[PAR_TRAIN:])
+
+
+def parallel_loaders(arrays, shuffle=False):
+    (X, y), (Xv, yv) = arrays
+    return (ArrayLoader(PartitionDataset(X, y, list(MIMIC_WIDTHS)),
+                        TRAIN_BATCH, shuffle=shuffle, seed=0),
+            ArrayLoader(PartitionDataset(Xv, yv, list(MIMIC_WIDTHS)),
+                        TRAIN_BATCH))
+
+
+def parallel_fit(device, arrays, mesh=None, engine="auto",
+                 nan_skip="sample", epochs=PAR_EPOCHS, make_optimizer=None):
+    """``fit_best`` with ``Adam8bit`` (or ``make_optimizer()``) on the
+    MIMIC model (dropout 0.2); returns the model and the run's numbers, K2
+    launches counted over ``fit_best`` alone."""
+    optimizer = Adam8bit(ADAM_LR) if make_optimizer is None \
+        else make_optimizer()
+    model = mimic_model(device if mesh is None else mesh.device,
+                        nan_skip=nan_skip, mesh=mesh, dp_engine=engine)
+    train_loader, val_loader = parallel_loaders(arrays)
+    history = MultiModNHistory([f"t{d}" for d in range(MIMIC_TARGETS)])
+    torch.cuda.synchronize(device)
+    FUSED_ADAM.launches = 0
+    t0 = time.perf_counter()
+    best = model.fit_best(train_loader, optimizer, "cross_entropy",
+                          epochs=epochs, val_loader=val_loader,
+                          history=history)
+    torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    steps = best["epochs_ran"] * train_loader.n_batches
+    return model, {
+        "train_grids": [np.asarray(g) for g in history.loss["train"]],
+        "val_grids": [np.asarray(g) for g in history.loss["val"]],
+        "losses": [float(np.mean(g)) for g in history.loss["train"]],
+        "scores": [float(s) for s in best["scores"]],
+        "best_epoch": best["best_epoch"], "k2_launches": FUSED_ADAM.launches,
+        "steps": steps, "seconds": seconds, "steps_per_s": steps / seconds}
+
+
+def leaf_bits(tree):
+    """Every tensor leaf of a tree as host bytes (bit comparisons)."""
+    return [t.detach().cpu().reshape(-1).contiguous().view(torch.uint8)
+            .numpy() for t in tree_leaves(tree) if torch.is_tensor(t)]
+
+
+def same_bits(a, b) -> bool:
+    return len(a) == len(b) and all(np.array_equal(x, y)
+                                    for x, y in zip(a, b))
+
+
+def mimic_leaf_shapes(device):
+    return [tuple(t.shape) for t in tree_leaves(mimic_model(device).params)]
+
+
+def parallel_one_rank(device, arrays, batch_arrays):
+    """(a) One rank, NCCL, in process: the meshed ``fit_best`` under both
+    engines bit-equal to the mesh-free one, K2 once per step."""
+    import torch.distributed as dist
+    from multimodn_tpu_torch.parallel import make_mesh
+    per_step = fa.launches_per_update(mimic_leaf_shapes(device))
+    parallel_fit(device, arrays, epochs=1)        # warm-up, not timed
+    runs, states = {}, {}
+    free, runs["mesh_free"] = parallel_fit(device, arrays)
+    states["mesh_free"] = leaf_bits(free.params) + leaf_bits(free.opt_state)
+    with tempfile.TemporaryDirectory(prefix="mmn_nccl_") as tmp:
+        dist.init_process_group(ONE_RANK_BACKEND,
+                                init_method=f"file://{tmp}/rendezvous",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh(device=device)
+            for engine in ("auto", "shard_map"):
+                model, r = parallel_fit(device, arrays, mesh, engine)
+                expect_launches(f"(a) {engine}", r["k2_launches"],
+                                per_step * r["steps"])
+                bits = leaf_bits(model.params) + leaf_bits(model.opt_state)
+                r["bit_equal_to_mesh_free"] = same_bits(
+                    bits, states["mesh_free"]) and r["scores"] == runs[
+                        "mesh_free"]["scores"] and all(
+                    np.array_equal(a, b) for a, b in zip(
+                        r["train_grids"], runs["mesh_free"]["train_grids"]))
+                if not r["bit_equal_to_mesh_free"]:
+                    raise AssertionError(f"(a) one-rank mesh, {engine}: not "
+                                         f"bit-equal to the mesh-free run")
+                runs[engine] = r
+        finally:
+            dist.destroy_process_group()
+    _, runs["mesh_free_batch"] = parallel_fit(device, batch_arrays,
+                                              nan_skip="batch")
+    adam_model, runs["mesh_free_adam"] = parallel_fit(
+        device, arrays, make_optimizer=lambda: Adam(ADAM_LR))
+    runs["mesh_free_adam"]["state"] = adam_model.state_dict()
+    for name, r in runs.items():
+        log(f"  (a) {name}: {r['steps']} steps, {r['steps_per_s']:.1f} "
+            f"steps/s, K2 {r['k2_launches']} launches, losses "
+            f"{[round(x, 6) for x in r['losses']]}")
+    return runs
+
+
+def cross_rank_adam(axis, device, shapes, sharded):
+    """K2's cross-rank form on this rank's pieces against the plain version
+    on the whole leaves, sliced: every sharded MIMIC leaf in one call (the
+    optimizer step), (4096, 1024) split 2 ways, and a (2, 65536) leaf with
+    a NaN in one row. Returns mismatching elements, launches per call and
+    times: the whole call with its gloo MAX between the passes, and the two
+    passes alone."""
+    b1, b2 = ADAM_BETAS
+    gen = torch.Generator(device=device).manual_seed(23)
+    cases = {"mimic_step": [s for s, c in zip(shapes, sharded) if c],
+             "4096x1024": [(4096, 1024)], "nan_row_2x65536": [(2, 65536)]}
+    out = {}
+    for name, whole_shapes in cases.items():
+        whole = [adam_leaf(s, "fp8", gen, device) + [None]
+                 for s in whole_shapes]
+        if name.startswith("nan"):
+            whole[0][1][1, 40000] = float("nan")
+        want = fa.multi_leaf_update_ref(whole, lr=ADAM_LR, b1=b1, b2=b2,
+                                        eps=ADAM_EPS, fmt="fp8")
+
+        def cut(t):
+            k = t.shape[-1] // axis.size
+            return t[..., axis.index * k:(axis.index + 1) * k].contiguous()
+
+        pieces = [[cut(w[0]), cut(w[1]), cut(w[2]), w[3].clone(), cut(w[4]),
+                   w[5].clone(), w[6], None] for w in whole]
+        split = [True] * len(pieces)
+        before = FUSED_ADAM.launches
+        fa.multi_leaf_update(pieces, lr=ADAM_LR, b1=b1, b2=b2, eps=ADAM_EPS,
+                             fmt="fp8", split=split, row_group=axis)
+        torch.cuda.synchronize(device)
+        launches = FUSED_ADAM.launches - before
+        bad = 0
+        for p, w in zip(pieces, want):
+            for a, b in ((p[0], cut(w[0])), (p[2], cut(w[1])), (p[3], w[2]),
+                         (p[4], cut(w[3])), (p[5], w[4])):
+                differ = _bits(a) != _bits(b)
+                if a.element_size() != 1:
+                    differ &= ~(a.isnan() & b.isnan())
+                bad += int(differ.sum())
+        local = [tuple(p[0].shape) for p in pieces]
+        expect_launches(f"K2 cross-rank {name}", launches,
+                        fa.launches_per_update(local, split))
+        if bad:
+            raise AssertionError(f"K2 cross-rank form, {name}: {bad} "
+                                 f"elements differ from the plain version")
+        r = {"mismatches": bad, "launches": launches, "leaves": len(local)}
+        if name == "mimic_step":
+            leaves = [tuple(p) for p in pieces]
+            kw = dict(lr=ADAM_LR, b1=b1, b2=b2, eps=ADAM_EPS, fmt="fp8")
+            r["ms"] = time_ms(lambda: FUSED_ADAM.launch(
+                leaves, tuple(local), split=tuple(split), row_group=axis,
+                **kw))
+            r["passes_ms"] = time_ms(lambda: FUSED_ADAM.launch(
+                leaves, tuple(local), split=tuple(split), **kw))
+            r["bound_ms"], r["bound_by"], r["bytes"] = adam_bound(local)
+            r["plain_ms"] = time_ms(lambda: fa.multi_leaf_update_ref(
+                leaves, split=split, row_group=axis, **kw))
+        out[name] = r
+    return out
+
+
+def collective_ms(model, arrays, work, label, steps=8):
+    """Collective time per training step from a ``utils.profiling.trace``
+    of ``steps`` steps: the CPU time of the ``collective`` regions (each
+    blocks until its transfer is done)."""
+    from multimodn_tpu_torch.utils import profiling
+    (X, y), _ = arrays
+    n = steps * TRAIN_BATCH
+    loader = ArrayLoader(PartitionDataset(X[:n], y[:n], list(MIMIC_WIDTHS)),
+                         TRAIN_BATCH)
+    optimizer = Adam8bit(ADAM_LR)
+    model.train_epoch(loader, optimizer)            # warm
+    torch.cuda.synchronize(model.device)
+    with profiling.trace(os.path.join(work, label)) as prof:
+        t0 = time.perf_counter()
+        model.train_epoch(loader, optimizer)
+        torch.cuda.synchronize(model.device)
+        wall = time.perf_counter() - t0
+    coll = sum(e.cpu_time_total for e in prof.key_averages()
+               if e.key == "collective")
+    return {"collective_ms_per_step": coll / 1e3 / steps,
+            "step_ms": 1e3 * wall / steps, "profiled_steps": steps}
+
+
+def serve_meshed(model, requests, device):
+    """(c) K1 on a meshed model: ``fused_forward`` gathers the whole weights
+    once per call and launches K1; answers against the plain chain on the
+    whole weights."""
+    whole = model._whole_params()
+    FUSED_CHAIN.launches = 0
+    answers = [model.fused_forward(x) for x in requests]
+    torch.cuda.synchronize(device)
+    launches = FUSED_CHAIN.launches
+    expect_launches("(c) K1 serving", launches,
+                    len(requests) * model._chain_spec.launches)
+    err = 0.0
+    for x, got in zip(requests, answers):
+        data = tuple(torch.as_tensor(m, device=device) for m in x)
+        states = forward_chain(
+            model.encoders, model.init_state, whole, data,
+            torch.ones(data[0].shape[0], device=device),
+            order=default_order(len(model.encoders)), nan_skip="sample")[0]
+        outs = [dec.apply(whole["decoders"][d], states)
+                for d, dec in enumerate(model.decoders)]
+        err = max(err, max_err(got, (states, outs)))
+    if not err <= TOL:
+        raise AssertionError(f"(c) K1 on gathered weights: error {err}")
+    return {"requests": len(requests), "launches": launches,
+            "launches_per_request": launches / len(requests),
+            "max_abs_err": err}
+
+
+def parallel_experiments(device, arrays, fold_mesh):
+    """(d) A fold-axis k-fold and a seed-axis sweep over the two ranks."""
+    from multimodn_tpu_torch.experiments import kfold_fit_best, \
+        sweep_fit_best
+    folds, tr, va = parallel_folds(arrays)
+    FUSED_ADAM.launches = 0
+    kfold = kfold_fit_best(lambda s: mimic_model(device, seed=s), folds,
+                           Adam8bit(ADAM_LR), "cross_entropy",
+                           epochs=PAR_FOLD_EPOCHS, mesh=fold_mesh)
+    sweep = sweep_fit_best(lambda s: mimic_model(device, seed=s), tr, va,
+                           Adam8bit(ADAM_LR), "cross_entropy",
+                           epochs=PAR_FOLD_EPOCHS, seeds=PAR_SEEDS,
+                           mesh=fold_mesh)
+    return {"kfold": [result_bits(r) for r in kfold],
+            "sweep": [result_bits(r) for r in sweep],
+            "k2_launches": FUSED_ADAM.launches}
+
+
+def parallel_folds(arrays):
+    (X, y), (Xv, yv) = arrays
+    half = PAR_TRAIN // 2
+    ds = PartitionDataset(X, y, list(MIMIC_WIDTHS))
+    val = PartitionDataset(Xv, yv, list(MIMIC_WIDTHS))
+    folds = [(ArrayLoader(Subset(ds, list(range(f * half, (f + 1) * half))),
+                          TRAIN_BATCH), ArrayLoader(val, TRAIN_BATCH))
+             for f in range(2)]
+    return folds, ArrayLoader(ds, TRAIN_BATCH), ArrayLoader(val,
+                                                            TRAIN_BATCH)
+
+
+def result_bits(r):
+    return {"scores": [float(s) for s in r["scores"]],
+            "best_epoch": r["best_epoch"],
+            "bits": leaf_bits(r["model"].params)}
+
+
+def parallel_resume(device, arrays, work, mesh, rank):
+    """(d) ``fit_best_resumable`` on 2 ranks: uninterrupted, then stopped
+    after its first epoch and resumed on 2 ranks; the stopped checkpoint is
+    kept for the one-rank (elastic) resume. The same with fp32 ``Adam``,
+    uninterrupted and stopped (``work/cut_adam``), for an elastic resume
+    held at the tight tolerance."""
+    from multimodn_tpu_torch.checkpoint import fit_best_resumable
+
+    class Stop(Exception):
+        pass
+
+    def run(ckpt, stop_after=None, make_optimizer=lambda: Adam8bit(ADAM_LR)):
+        model = mimic_model(device, mesh=mesh)
+        tr, va = parallel_loaders(arrays, shuffle=True)
+        history = MultiModNHistory([f"t{d}" for d in range(MIMIC_TARGETS)])
+
+        def on_chunk(done, _total):
+            if stop_after is not None and done == stop_after:
+                raise Stop
+        try:
+            r = fit_best_resumable(model, tr, make_optimizer(),
+                                   "cross_entropy", epochs=PAR_EPOCHS,
+                                   checkpoint_dir=ckpt, val_loader=va,
+                                   chunk_epochs=1, on_chunk=on_chunk,
+                                   history=history)
+        except Stop:
+            return None
+        return ([float(s) for s in r["scores"]], model.state_dict(),
+                history_grids(r["history"]))
+
+    full = run(os.path.join(work, "full"))
+    cut = os.path.join(work, "cut")
+    run(cut, stop_after=1)
+    if rank == 0:
+        shutil.copytree(cut, os.path.join(work, "elastic"))
+    mesh.everyone.barrier()
+    resumed = run(cut)
+    equal = full[0] == resumed[0] and all(
+        np.array_equal(a, b) for a, b in zip(tree_leaves(full[1]),
+                                             tree_leaves(resumed[1])))
+    if not equal:
+        raise AssertionError("(d) resumed on 2 ranks: not bit-equal to the "
+                             "uninterrupted run")
+    adam = lambda: Adam(ADAM_LR)                       # noqa: E731
+    full_adam = run(os.path.join(work, "full_adam"), make_optimizer=adam)
+    run(os.path.join(work, "cut_adam"), stop_after=1, make_optimizer=adam)
+    return {"scores": full[0], "grids": full[2], "resumed_bit_equal": equal,
+            "adam_scores": full_adam[0], "adam_state": full_adam[1],
+            "adam_grids": full_adam[2]}
+
+
+def max_param_diff(got, want, what):
+    """Two state dicts held at the mesh tolerance (rtol 1e-5, atol 1e-6);
+    returns the largest absolute difference."""
+    diff = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        if not np.allclose(g, w, rtol=PAR_RTOL, atol=PAR_ATOL):
+            raise AssertionError(
+                f"{what}: parameters {float(np.max(np.abs(g - w)))} apart "
+                f"(rtol {PAR_RTOL}, atol {PAR_ATOL})")
+        diff = max(diff, float(np.max(np.abs(g - w))))
+    return diff
+
+
+def elastic_loss_diff(elastic, grids, scores, rtol, what):
+    """The one-rank resume's loss grids, epoch by epoch, against the
+    uninterrupted two-rank run's at ``rtol``; returns the largest relative
+    difference."""
+    got = history_grids(elastic["history"])
+    if len(got) != len(grids):
+        raise AssertionError(f"(d) elastic 2 -> 1 resume, {what}: "
+                             f"{len(got)} grids, expected {len(grids)}")
+    diff = max(float(np.max(np.abs(g - w) / np.abs(w)))
+               for g, w in zip(got, grids))
+    if not diff <= rtol:
+        raise AssertionError(
+            f"(d) elastic 2 -> 1 resume, {what}: losses {diff} (relative) "
+            f"from the 2-rank run's, rtol {rtol} (scores "
+            f"{elastic['scores']} against {scores})")
+    return diff
+
+
+def history_grids(history):
+    """A history's train and val loss grids, epoch by epoch."""
+    return [np.asarray(g) for tag in ("train", "val")
+            for g in history.loss[tag]]
+
+
+def parallel_rank(rank, world, arrays, batch_arrays, requests, work):
+    """(b)-(d) on one of two ranks sharing the card over gloo."""
+    from multimodn_tpu_torch.parallel import make_mesh
+    from multimodn_tpu_torch.parallel.dryrun import rank_device
+    device = torch.device(rank_device())
+    exact_math()
+    out = {"runs": {}}
+    for label, shape, axes, arrs, nan_skip, opt in (
+            ("data2_sample", (2,), ("data",), arrays, "sample", Adam8bit),
+            ("data2_batch", (2,), ("data",), batch_arrays, "batch",
+             Adam8bit),
+            ("model2", (1, 2), ("data", "model"), arrays, "sample",
+             Adam8bit),
+            ("data2_adam", (2,), ("data",), arrays, "sample", Adam),
+            ("model2_adam", (1, 2), ("data", "model"), arrays, "sample",
+             Adam)):
+        mesh = make_mesh(shape, axes, device=device)
+        model, r = parallel_fit(device, arrs, mesh, nan_skip=nan_skip,
+                                make_optimizer=lambda: opt(ADAM_LR))
+        r["k2_launches_per_step"] = r["k2_launches"] / r["steps"]
+        split = tree_leaves(model._dp.split)
+        r["k2_expected_per_step"] = fa.launches_per_update(
+            [tuple(t.shape) for t in tree_leaves(model.params)],
+            split if any(split) else None)
+        r["local_bits"] = leaf_bits(model.params) + leaf_bits(model.opt_state)
+        r["state"] = model.state_dict()
+        r["coords"] = dict(mesh.coords)
+        r.update(collective_ms(model, arrs, work, f"{label}_{rank}"))
+        if label == "model2":
+            out["serving"] = serve_meshed(model, requests, device)
+            shapes = [tuple(t.shape) for t in tree_leaves(
+                model._whole_params())]
+            out["k2_cross_rank"] = cross_rank_adam(
+                mesh.axis("model"), device, shapes, split)
+        out["runs"][label] = r
+    fold_mesh = make_mesh((2,), ("fold",), device=device)
+    out["experiments"] = parallel_experiments(device, arrays, fold_mesh)
+    data_mesh = make_mesh((2,), ("data",), device=device)
+    out["resume"] = parallel_resume(device, arrays, work, data_mesh, rank)
+    return out
+
+
+def run_parallel(device, rank_device_name="cuda:0"):
+    """Phase 17 (module docstring); returns its numbers."""
+    from multimodn_tpu_torch.experiments import kfold_fit_best, \
+        sweep_fit_best
+    from multimodn_tpu_torch.checkpoint import fit_best_resumable
+    from multimodn_tpu_torch.parallel.dryrun import spawn
+    t_phase = time.perf_counter()
+    arrays, batch_arrays = parallel_arrays(), parallel_arrays(batch_mode=True)
+    one = parallel_one_rank(device, arrays, batch_arrays)
+    requests = serving_requests(seed=17)
+    with tempfile.TemporaryDirectory(prefix="mmn_parallel_") as work:
+        t0 = time.perf_counter()
+        ranks = spawn(parallel_rank, 2, "gloo", rank_device_name, arrays,
+                      batch_arrays, requests, work, timeout=900)
+        spawn_s = time.perf_counter() - t0
+        # (d) references on one rank: the folds, the seeds, the elastic
+        # resume from the 2-rank checkpoint.
+        folds, tr, va = parallel_folds(arrays)
+        FUSED_ADAM.launches = 0
+        kfold = [result_bits(r) for r in kfold_fit_best(
+            lambda s: mimic_model(device, seed=s), folds, Adam8bit(ADAM_LR),
+            "cross_entropy", epochs=PAR_FOLD_EPOCHS)]
+        sweep = [result_bits(r) for r in sweep_fit_best(
+            lambda s: mimic_model(device, seed=s), tr, va, Adam8bit(ADAM_LR),
+            "cross_entropy", epochs=PAR_FOLD_EPOCHS, seeds=PAR_SEEDS)]
+        model = mimic_model(device)
+        tr, va = parallel_loaders(arrays, shuffle=True)
+        elastic = fit_best_resumable(
+            model, tr, Adam8bit(ADAM_LR), "cross_entropy", epochs=PAR_EPOCHS,
+            checkpoint_dir=os.path.join(work, "elastic"), val_loader=va,
+            chunk_epochs=1)
+        ref_k2 = FUSED_ADAM.launches
+        adam_model = mimic_model(device)
+        tr, va = parallel_loaders(arrays, shuffle=True)
+        elastic_adam = fit_best_resumable(
+            adam_model, tr, Adam(ADAM_LR), "cross_entropy",
+            epochs=PAR_EPOCHS, checkpoint_dir=os.path.join(work, "cut_adam"),
+            val_loader=va, chunk_epochs=1)
+        elastic_adam["state"] = adam_model.state_dict()
+    out = {"one_rank": {k: {n: r[n] for n in (
+        "losses", "scores", "best_epoch", "k2_launches", "steps",
+        "steps_per_s", "seconds")} for k, r in one.items()}}
+    # (b) replicas bit-equal, losses against (a).
+    for label, ref in (("data2_sample", "mesh_free"),
+                       ("data2_batch", "mesh_free_batch"),
+                       ("model2", "mesh_free"),
+                       ("data2_adam", "mesh_free_adam"),
+                       ("model2_adam", "mesh_free_adam")):
+        rs = [r["runs"][label] for r in ranks]
+        fp32 = label.endswith("_adam")
+        if label.startswith("model2"):
+            equal = all(np.array_equal(a, b) for a, b in zip(
+                tree_leaves(rs[0]["state"]), tree_leaves(rs[1]["state"])))
+        else:
+            equal = same_bits(rs[0]["local_bits"], rs[1]["local_bits"])
+        if not equal:
+            raise AssertionError(f"(b) {label}: the ranks' replicas differ")
+        for got, want in ((rs[0]["train_grids"], one[ref]["train_grids"]),
+                          (rs[0]["val_grids"], one[ref]["val_grids"])):
+            for e, (g, w) in enumerate(zip(got, want)):
+                rtol = PAR_RTOL if e == 0 or fp32 else PAR_RTOL_8BIT
+                if not np.allclose(g, w, rtol=rtol, atol=0.0):
+                    raise AssertionError(
+                        f"(b) {label}: epoch {e}'s losses {g} against the "
+                        f"one-rank run's {w} (rtol {rtol})")
+        if fp32:
+            params_diff = max_param_diff(rs[0]["state"], one[ref]["state"],
+                                         f"(b) {label}")
+        for r in rs:
+            expect_launches(f"(b) {label} K2", r["k2_launches"],
+                            0 if fp32 else
+                            r["steps"] * r["k2_expected_per_step"])
+        out[label] = {k: rs[0][k] for k in (
+            "losses", "scores", "best_epoch", "steps", "steps_per_s",
+            "seconds", "k2_launches_per_step", "collective_ms_per_step",
+            "step_ms", "profiled_steps")}
+        out[label]["k2_launches"] = sum(r["k2_launches"] for r in rs)
+        out[label]["replicas_bit_equal"] = equal
+        out[label]["rel_loss_diff_by_epoch"] = [
+            float(np.max(np.abs(g - w) / np.abs(w)))
+            for g, w in zip(rs[0]["train_grids"], one[ref]["train_grids"])]
+        if fp32:
+            out[label]["max_abs_param_diff"] = params_diff
+    out["k2_cross_rank"] = ranks[0]["k2_cross_rank"]
+    out["serving"] = dict(ranks[0]["serving"], launches=sum(
+        r["serving"]["launches"] for r in ranks))
+    # (d) experiments and checkpoints.
+    for kind, want in (("kfold", kfold), ("sweep", sweep)):
+        for rank in ranks:
+            got = rank["experiments"][kind]
+            if [g["scores"] for g in got] != [w["scores"] for w in want] or \
+                    not all(same_bits(g["bits"], w["bits"])
+                            for g, w in zip(got, want)):
+                raise AssertionError(f"(d) {kind} over 2 ranks differs from "
+                                     f"the one-rank results")
+    full = ranks[0]["resume"]
+    elastic_diff = elastic_loss_diff(elastic, full["grids"], full["scores"],
+                                     PAR_RTOL_8BIT, "Adam8bit")
+    elastic_adam_diff = elastic_loss_diff(
+        elastic_adam, full["adam_grids"], full["adam_scores"], PAR_RTOL,
+        "fp32 Adam")
+    elastic_adam_params = max_param_diff(
+        elastic_adam["state"], full["adam_state"], "(d) elastic fp32 Adam")
+    out["experiments"] = {
+        "kfold_scores": [w["scores"] for w in kfold],
+        "sweep_scores": [w["scores"] for w in sweep],
+        "equal_to_one_rank": True,
+        "resumed_bit_equal": full["resumed_bit_equal"],
+        "elastic_scores": [float(s) for s in elastic["scores"]],
+        "two_rank_scores": full["scores"],
+        "elastic_max_rel_loss_diff": elastic_diff,
+        "elastic_adam_scores": [float(s) for s in elastic_adam["scores"]],
+        "two_rank_adam_scores": full["adam_scores"],
+        "elastic_adam_max_rel_loss_diff": elastic_adam_diff,
+        "elastic_adam_max_abs_param_diff": elastic_adam_params,
+        "k2_launches": sum(r["experiments"]["k2_launches"] for r in ranks)
+        + ref_k2}
+    out["k2_launches"] = (sum(one[k]["k2_launches"] for k in one)
+                          + sum(out[k]["k2_launches"] for k in (
+                              "data2_sample", "data2_batch", "model2",
+                              "data2_adam", "model2_adam"))
+                          + out["experiments"]["k2_launches"])
+    out["k1_launches"] = out["serving"]["launches"]
+    out["spawn_s"] = spawn_s
+    out["wall_s"] = time.perf_counter() - t_phase
+    log("  " + json.dumps({k: out[k] for k in (
+        "data2_sample", "data2_batch", "model2", "data2_adam",
+        "model2_adam")}))
+    log(f"  K2 cross-rank: {json.dumps(out['k2_cross_rank'])}")
+    log(f"  serving: {json.dumps(out['serving'])}")
+    log(f"  experiments: {json.dumps(out['experiments'])}")
+    log(f"  phase 17 wall {out['wall_s']:.1f} s (two-rank world "
+        f"{spawn_s:.1f} s)  [{card_line()}]")
+    return out
+
+
 def build_kernels():
     """Build every kernel library at once (one nvcc per source)."""
     with ThreadPoolExecutor(max_workers=2) as pool:
@@ -3291,6 +3887,10 @@ def parse_args(argv=None):
                    help="run phases 1, 2 and 16 (mixed precision and the "
                         "ResNet image model) only and end with the "
                         "precision line (no ok line)")
+    p.add_argument("--parallel-only", action="store_true",
+                   help="run phases 1, 2 and 17 (multi-GPU parity: one "
+                        "rank over NCCL, two ranks on the card over gloo) "
+                        "only and end with the parallel line (no ok line)")
     p.add_argument("--resume-child", nargs=2, metavar=("KIND", "DIR"),
                    help=argparse.SUPPRESS)
     return p.parse_args(argv)
@@ -3364,6 +3964,12 @@ def main(argv=None) -> int:
         log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
         log(card)
         return 0
+    if args.parallel_only:
+        log("== phase 17: multi-GPU parity")
+        log("parallel: " + json.dumps(run_parallel(device)))
+        log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
+        log(card)
+        return 0
     if args.precision_only:
         log("== phase 16: mixed precision and the ResNet image model")
         log("precision: " + json.dumps(run_precision(
@@ -3429,6 +4035,10 @@ def main(argv=None) -> int:
     log("== phase 16: mixed precision and the ResNet image model")
     log(card_line())
     precision = run_precision(device, gen)
+
+    log("== phase 17: multi-GPU parity")
+    log(card_line())
+    parallel = run_parallel(device)
     k1_by_phase = {
         "4": launches,
         "9": sum(r["launches"] for r in titanic["served"].values()),
@@ -3437,7 +4047,8 @@ def main(argv=None) -> int:
         "13": orders["mimic"]["served"]["launches"],
         "14": sum(r["launches"] for r in dropin["served"].values()),
         "15": experiments["artifact"]["k1_launches"],
-        "16": precision["served"]["launches"]}
+        "16": precision["served"]["launches"],
+        "17": parallel["k1_launches"]}
     k2_by_phase = {
         "6": runs["Adam8bit"]["launches"],
         "12": sum(resume["resume"][kind]["k2_launches"]
@@ -3447,7 +4058,8 @@ def main(argv=None) -> int:
         "15": sum(experiments[k]["k2_launches"]
                   for k in ("sweep", "kfold", "trace")),
         "16": precision["mimic_bf16"]["bf16"]["k2_launches"]
-        + precision["images"]["k2_launches"]}
+        + precision["images"]["k2_launches"],
+        "17": parallel["k2_launches"]}
 
     main_b = mimic[SERVING_BATCH]
     entry = {
@@ -3496,6 +4108,7 @@ def main(argv=None) -> int:
             "pipeline", "requests", "launches", "launches_per_request",
             "max_abs_err", "batch", "ms", "plain_ms", "bound_ms",
             "bound_by")},
+        "parallel": parallel["serving"],
     }
     step = adam["times"]["mimic_step"]
     adam_entry = {
@@ -3545,6 +4158,10 @@ def main(argv=None) -> int:
                 "k2_launches", "steps", "k2_launches_per_step", "leaves")}
                 for dtype, r in precision["images"]["runs"].items()},
             "resnet_update": precision["resnet_update"]},
+        "parallel": {"cross_rank": parallel["k2_cross_rank"], **{
+            label: {k: parallel[label][k] for k in (
+                "k2_launches", "steps", "k2_launches_per_step")}
+            for label in ("data2_sample", "data2_batch", "model2")}},
     }
     log("earlier designs (not measured in this run): "
         + json.dumps(EARLIER))
@@ -3559,6 +4176,7 @@ def main(argv=None) -> int:
     log("dropin: " + json.dumps(dropin))
     log("experiments: " + json.dumps(experiments))
     log("precision: " + json.dumps(precision))
+    log("parallel: " + json.dumps(parallel))
     log(json.dumps({"kernels": [entry, adam_entry]}))
     log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
     log(card)

@@ -50,13 +50,29 @@ def _to_numpy(tree):
     return tree_map(lambda t: to_numpy(t) if torch.is_tensor(t) else t, tree)
 
 
-def _atomic_pickle(path: str, payload: dict):
+def _atomic_pickle(path: str, payload: dict, model=None):
     """Write ``payload`` to ``path`` through a tmp file and ``os.replace``,
-    so a kill mid-write never leaves a torn checkpoint."""
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        pickle.dump(payload, f)
-    os.replace(tmp, path)
+    so a kill mid-write never leaves a torn checkpoint. For a meshed
+    ``model`` the mesh's first rank writes and every rank returns once the
+    file is there."""
+    mesh = getattr(model, "mesh", None)
+    if mesh is None or mesh.everyone.index == 0:
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump(payload, f)
+        os.replace(tmp, path)
+    if mesh is not None:
+        mesh.everyone.barrier()
+
+
+def _whole(model, attr: str):
+    """``model.params`` or ``model.opt_state`` with whole leaves: a
+    ``MultiModN`` gathers its pieces on a mesh (``_whole_params``,
+    ``_whole_opt_state``); any other object with ``params`` (``HAIM``, or
+    the stand-ins the JAX package's ``save_checkpoint`` also takes) holds
+    them whole."""
+    whole = getattr(model, f"_whole_{attr}", None)
+    return getattr(model, attr) if whole is None else whole()
 
 
 def save_checkpoint(path: str, model, epoch: int,
@@ -68,15 +84,15 @@ def save_checkpoint(path: str, model, epoch: int,
     ``path``."""
     payload = {
         "epoch": epoch,
-        "model_state_dict": _to_numpy(model.params),
+        "model_state_dict": _to_numpy(_whole(model, "params")),
         "auc_bac_val_cum": score,
     }
     if include_opt_state and getattr(model, "opt_state", None) is not None:
-        payload["opt_state"] = _to_numpy(model.opt_state)
+        payload["opt_state"] = _to_numpy(_whole(model, "opt_state"))
     if extra:
         payload.update(extra)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    _atomic_pickle(path, payload)
+    _atomic_pickle(path, payload, model)
     return path
 
 
@@ -127,12 +143,14 @@ def opt_state_from_numpy(optimizer, state: dict, params: dict) -> dict:
 
 
 def _restore_opt_state(model, optimizer, opt_state_np):
-    """Bind a checkpointed (numpy) optimizer state to ``model`` on its
-    device, so that training with ``optimizer`` continues it."""
+    """Bind a checkpointed (numpy, whole-leaf) optimizer state to ``model``
+    on its device, so that training with ``optimizer`` continues it; on a
+    mesh it is placed like the parameters (``parallel.shard_opt_state``,
+    JAX ``checkpoint.py:116-130``), whatever mesh wrote it."""
     if opt_state_np is None:
         return
-    model.opt_state = opt_state_from_numpy(optimizer, opt_state_np,
-                                           model.params)
+    model.opt_state = model._place_opt_state(opt_state_from_numpy(
+        optimizer, opt_state_np, model._whole_params()))
     model._opt = optimizer
 
 
@@ -211,13 +229,13 @@ def _write_resume_payload(state_path, model, epoch, history,
         "epoch_counter": model._epoch_counter,
         "cycle_offset": model._cycle_offset,
         "shuffle_rng": model._shuffle_rng.getstate(),
-        "model_state_dict": _to_numpy(model.params),
-        "opt_state": _to_numpy(model.opt_state),
+        "model_state_dict": _to_numpy(model._whole_params()),
+        "opt_state": _to_numpy(model._whole_opt_state()),
         "history": history,
         "train_loader": _loader_state(train_loader),
     }
     payload.update(extra)
-    _atomic_pickle(state_path, payload)
+    _atomic_pickle(state_path, payload, model)
 
 
 def _check_chunks(chunk_epochs: int, name: str = "chunk_epochs"):
@@ -249,7 +267,10 @@ def _fit_best_checkpointed(model, train_loader, optimizer, criterion, epochs,
             max_epochs=epochs)
     if payload is not None:
         best = payload["best"]
-        resume = {"best": (params_from_jax(best["params"], model.device),
+        # The best carry is re-sharded for this run's mesh (JAX
+        # data/streaming.py:765-771).
+        resume = {"best": (model._pieces(params_from_jax(best["params"],
+                                                         model.device)),
                            best["score"], best["epoch"]),
                   "scores": payload["scores"]}
 
@@ -261,7 +282,8 @@ def _fit_best_checkpointed(model, train_loader, optimizer, criterion, epochs,
         bp, bs, be = best
         _write_resume_payload(
             state_path, model, e + 1, history, train_loader,
-            best={"params": _to_numpy(bp), "score": bs, "epoch": be},
+            best={"params": _to_numpy(model._whole(bp)), "score": bs,
+                  "epoch": be},
             scores=list(scores))
         if on_chunk is not None:
             on_chunk(e + 1, epochs)

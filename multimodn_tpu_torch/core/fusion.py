@@ -7,7 +7,9 @@ NaN missingness is a validity mask with state passthrough:
 
 - ``nan_skip='sample'``: only samples whose modality holds no NaN advance;
 - ``nan_skip='batch'``: one NaN anywhere in the real batch skips the encoder
-  for the whole batch (the reference's semantics);
+  for the whole batch (the reference's semantics); on a mesh the batch is
+  the GLOBAL one, whose any-NaN flags arrive as ``nan_any`` (one per
+  modality, ``parallel.dp_step``), as JAX's ``global_any`` makes them;
 - ``nan_skip='none'``: NaNs flow into the encoder (``predict``'s quirk #9).
 
 Every chain form is one Python loop over ``(data_idx, enc_idx)`` pairs
@@ -61,7 +63,7 @@ def init_chain_state(init_state, params: dict, batch: int, init_offset,
 
 
 def chain_step_skip(run: Callable, x, old_state, sample_mask, n_real, *,
-                    nan_skip: str, mask_aware: bool = False):
+                    nan_skip: str, mask_aware: bool = False, any_nan=None):
     """One encoder step's NaN-skip semantics. ``run(x, eff_mask)`` executes
     the encoder on the NaN-zeroed input. A mask-aware encoder (one with
     ``_accepts_sample_mask``, whose batch statistics must see only real,
@@ -79,7 +81,8 @@ def chain_step_skip(run: Callable, x, old_state, sample_mask, n_real, *,
         if mask_aware else None
     new_state = run(torch.nan_to_num(x), eff_mask)
     if nan_skip == "batch":
-        any_nan = (sample_has_nan & (sample_mask > 0)).any()
+        if any_nan is None:
+            any_nan = (sample_has_nan & (sample_mask > 0)).any()
         ok = torch.where(any_nan, 0.0, 1.0).to(one)
         state = torch.where(any_nan, old_state, new_state)
         counted = n_real * ok
@@ -114,14 +117,15 @@ def _fit_width(x: torch.Tensor, fmax: int, width: int) -> torch.Tensor:
 
 def run_executions(encoders, init_state, params, data, sample_mask, *,
                    order, nan_skip, init_offset=0, train=False,
-                   generator=None, widths=None):
+                   generator=None, widths=None, nan_any=None):
     """Run the encoders in ``order``, one execution per ``(data_idx,
     enc_idx)`` pair: the loop every chain form shares. ``train`` turns on
     the encoders' dropout, drawn from ``generator``; a mask-aware encoder
     also gets each step's effective sample mask (``chain_step_skip``).
     ``widths`` is the switch chain's ``(fmax, per-encoder input widths)``
     (``switch_widths``): each input is then zero-padded to ``fmax`` and cut
-    to its encoder's width.
+    to its encoder's width. ``nan_any``: the global per-modality any-NaN
+    flags of a mesh's batch (``chain_step_skip``).
 
     Returns ``(state0, states, state_change, ok, counted, n_real)``: the
     initial state and, per execution, its state after the skip
@@ -150,7 +154,8 @@ def run_executions(encoders, init_state, params, data, sample_mask, *,
 
         state, ok, counted = chain_step_skip(
             run, data[data_idx], old_state, sample_mask, n_real,
-            nan_skip=nan_skip, mask_aware=mask_aware)
+            nan_skip=nan_skip, mask_aware=mask_aware,
+            any_nan=None if nan_any is None else nan_any[data_idx])
         states.append(state)
         sc.append(masked_mean_sq_diff(state, old_state, sample_mask))
         ok_exec.append(ok)
@@ -195,10 +200,12 @@ def forward_chain(
     train: bool = False,
     generator=None,
     widths=None,
+    nan_any=None,
 ):
     """Run the encoder chain in ``order``, collecting per-row states.
     ``train`` turns on the encoders' dropout, drawn from ``generator``.
-    ``widths``: the switch chain's input fit (``run_executions``).
+    ``widths``: the switch chain's input fit, ``nan_any`` a mesh batch's
+    global NaN flags (``run_executions``).
 
     Returns:
         states_by_row: (E+1, B, S) — row 0 is the initial state, row e+1 the
@@ -212,13 +219,14 @@ def forward_chain(
     state0, *executions = run_executions(
         encoders, init_state, params, data, sample_mask, order=order,
         nan_skip=nan_skip, init_offset=init_offset, train=train,
-        generator=generator, widths=widths)
+        generator=generator, widths=widths, nan_any=nan_any)
     return rows_by_last_execution(len(encoders), order, state0, *executions)
 
 
 def forward_chain_executions(encoders, init_state, params, data,
                              sample_mask, *, order, nan_skip="sample",
-                             init_offset=0, train=False, generator=None):
+                             init_offset=0, train=False, generator=None,
+                             nan_any=None):
     """``forward_chain`` for orders that repeat an encoder: row k+1 is the
     state after the k-th EXECUTION, whatever encoder it ran;
     ``combine_executions`` folds the decoded grid back into encoder rows.
@@ -228,7 +236,7 @@ def forward_chain_executions(encoders, init_state, params, data,
     state0, states, sc, ok, counted, n_real = run_executions(
         encoders, init_state, params, data, sample_mask, order=order,
         nan_skip=nan_skip, init_offset=init_offset, train=train,
-        generator=generator)
+        generator=generator, nan_any=nan_any)
     one = torch.ones((), device=n_real.device)
     return (torch.stack([state0] + states),
             torch.stack(sc) if sc else torch.zeros((0,), device=one.device),

@@ -6,6 +6,15 @@ Parameters are plain dicts of tensors. A dense layer keeps the JAX package's
 between the two packages is a copy. Initialization follows
 ``torch.nn.Linear``'s distribution: weight and bias ~ U(-1/sqrt(fan_in),
 +1/sqrt(fan_in)), drawn from an explicit ``torch.Generator``.
+
+Under a mesh's ``model`` axis a dense layer may hold a column piece of its
+weight and bias (``parallel.sharding``); the step marks such a layer with
+``"model_axis"`` (``parallel.dp_step.DataParallel.view``) and
+``dense_apply`` runs it column-parallel, with Megatron's pair of autograd
+functions: ``CopyToModelAxis`` (identity forward, all-reduce of the input
+gradient backward) and ``GatherFromModelAxis`` (all-gather of the output
+columns forward, the rank's own columns of the gradient backward). The
+weight gradient ``x^T dL/dy_r`` stays local and ``dL/dx`` is whole.
 """
 from __future__ import annotations
 
@@ -93,16 +102,51 @@ def dense_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     in float32, is cast to the activation dtype, then the bias is added in
     that dtype (the JAX package's order).
 
+    A layer tagged ``"model_axis"`` holds the rank's columns and runs
+    column-parallel (module docstring).
+
     On the card, bf16 or fp16 activations and weights of that dtype run a
     half-precision GEMM that accumulates in fp32 and rounds its output once
     (``exact_half_reductions``), which is the same product; elsewhere the
     operands are upcast and the fp32 product is cast."""
-    w = params["w"]
+    w, axis = params["w"], params.get("model_axis")
+    if axis is not None:
+        x = CopyToModelAxis.apply(x, axis)
     if x.is_cuda and x.dtype in HALF_DTYPES and w.dtype == x.dtype:
         y = torch.matmul(x, w)
     else:
         y = torch.matmul(x.float(), w.float()).to(x.dtype)
-    return y + params["b"].to(x.dtype)
+    y = y + params["b"].to(x.dtype)
+    return y if axis is None else GatherFromModelAxis.apply(y, axis)
+
+
+class CopyToModelAxis(torch.autograd.Function):
+    """Identity forward; backward, the input gradient summed over the model
+    axis (each rank's columns contribute their part of ``dL/dx``)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.axis.all_reduce(grad, "sum"), None
+
+
+class GatherFromModelAxis(torch.autograd.Function):
+    """Forward, every rank's last-axis columns concatenated in model-axis
+    order; backward, the rank's own columns of the gradient."""
+
+    @staticmethod
+    def forward(ctx, y, axis):
+        ctx.axis, ctx.width = axis, y.shape[-1]
+        return axis.all_gather(y, dim=y.dim() - 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        i, k = ctx.axis.index, ctx.width
+        return grad.narrow(grad.dim() - 1, i * k, k).contiguous(), None
 
 
 def mlp_init(generator: torch.Generator, dims: Sequence[int],
@@ -110,6 +154,15 @@ def mlp_init(generator: torch.Generator, dims: Sequence[int],
     """Params for a stack of dense layers with the given dims chain."""
     return [dense_init(generator, d_in, d_out, device)
             for d_in, d_out in zip(dims[:-1], dims[1:])]
+
+
+def uniform(shape, generator, device) -> torch.Tensor:
+    """U[0, 1) float32 of ``shape`` from a training generator: a
+    ``torch.Generator``, or a stream with ``rand(shape, device)`` (a mesh
+    rank's ``parallel.dp_step.RowStream``)."""
+    if hasattr(generator, "rand"):
+        return generator.rand(shape, device)
+    return torch.rand(shape, generator=generator, device=device)
 
 
 def dropout(x: torch.Tensor, rate: float, generator, train: bool
@@ -121,7 +174,7 @@ def dropout(x: torch.Tensor, rate: float, generator, train: bool
     if not train or rate <= 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = uniform(x.shape, generator, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

@@ -35,6 +35,7 @@ from multimodn_tpu_torch.core.fusion import (
     switch_widths,
 )
 from multimodn_tpu_torch.core.metrics import masked_binary_auroc, safe_div
+from multimodn_tpu_torch.core.nn import uniform
 from multimodn_tpu_torch.core.tree import (
     tree_leaves,
     tree_map,
@@ -59,9 +60,8 @@ def draw_presence_dropout(generator: torch.Generator, batch: int,
                           device) -> torch.Tensor:
     """(B, M) boolean mask: each (sample, modality) pair dropped with
     probability ``p``, one Bernoulli draw per modality from ``generator``."""
-    return torch.stack([
-        torch.rand((batch,), generator=generator, device=device) < p
-        for _ in range(n_modalities)], dim=1)
+    return torch.stack([uniform((batch,), generator, device) < p
+                        for _ in range(n_modalities)], dim=1)
 
 
 def inject_presence_dropout(data: Sequence[torch.Tensor],
@@ -79,23 +79,38 @@ def inject_presence_dropout(data: Sequence[torch.Tensor],
 
 def presence_penalty_term(states: torch.Tensor, data: Sequence[torch.Tensor],
                           sample_mask: torch.Tensor,
-                          order: Sequence[Tuple[int, int]]) -> torch.Tensor:
+                          order: Sequence[Tuple[int, int]],
+                          axis=None) -> torch.Tensor:
     """The missingness-weighted mean squared state change over PRESENT rows,
     averaged over the execution steps of the static ``order`` (JAX
     ``core/step.py:143-191``): step k, ``(d, e) = order[k]``, reads the
     change from the previous step's row (row 0 first) to row ``e + 1``,
-    weighted by modality ``d``'s missing fraction among the valid rows."""
+    weighted by modality ``d``'s missing fraction among the valid rows.
+
+    ``axis``: on a mesh, the data axis. The counts (valid, missing and
+    present rows) carry no gradient and are summed over it in one
+    ``all_reduce``, so they are the global batch's; the present-row delta
+    sums stay the rank's own, so the rank's term is its share of the
+    global one and the terms of the ranks add up to it (JAX's
+    ``shard_map`` engine reaches the same by dividing by its loss scale)."""
     valid = sample_mask > 0
-    n_valid = sample_mask.float().sum().clamp_min(1.0)
+    missing = [sample_missing(data[d]) for d, _e in order]
+    counts = torch.stack([sample_mask.float().sum()]
+                         + [(m & valid).float().sum() for m in missing]
+                         + [((~m) & valid).float().sum() for m in missing])
+    if axis is not None:
+        counts = axis.all_reduce(counts)
+    k = len(order)
+    n_valid = counts[0].clamp_min(1.0)
     prev = states[0]
     pen = torch.zeros((), device=states.device)
-    for d, e in order:
+    for i, (_d, e) in enumerate(order):
         cur = states[e + 1]
-        missing = sample_missing(data[d])
-        miss_frac = (missing & valid).float().sum() / n_valid
-        present = ((~missing) & valid).float()
+        miss_frac = counts[1 + i] / n_valid
+        present = ((~missing[i]) & valid).float()
         delta = ((cur.float() - prev.float()) ** 2).mean(dim=-1)
-        present_delta = (delta * present).sum() / present.sum().clamp_min(1.0)
+        present_delta = (delta * present).sum() / \
+            counts[1 + k + i].clamp_min(1.0)
         pen = pen + miss_frac * present_delta
         prev = cur
     return pen / max(len(order), 1)
@@ -108,8 +123,8 @@ def make_batch_loss_fn(encoders, decoders, init_state, criterion,
                        presence_penalty: float = 0.0, shuffle: bool = False,
                        per_batch_seq: bool = False, compute_dtype=None):
     """``loss_fn(params, data, targets, sample_mask, generator, init_offset,
-    train, drop=None, seq=None, perm=None) -> (loss, aux)`` for one padded
-    batch.
+    train, drop=None, seq=None, perm=None, batch_stats=None) -> (loss, aux)``
+    for one padded batch.
 
     The loss is the reference's (multimodn.py:194-202): the grid mean times
     ``err_penalty`` plus the mean state change times
@@ -143,7 +158,13 @@ def make_batch_loss_fn(encoders, decoders, init_state, criterion,
     training and evaluation alike; NaN survives the cast, so the skip still
     sees it. Losses, metrics and penalties reduce in fp32 (``decode_grid``,
     ``masked_mean_sq_diff``), and the casts are differentiable, so the
-    gradients reach the fp32 master parameters as fp32."""
+    gradients reach the fp32 master parameters as fp32.
+
+    ``batch_stats``: on a mesh, the rank's rows of a global batch with the
+    batch's global quantities (``parallel.dp_step.BatchStats``): the
+    whole-batch NaN flags drive ``nan_skip='batch'``, the loss is the
+    rank's share of the global one (times ``batch_stats.scale``), and the
+    presence penalty takes global counts."""
     if chain not in ("unrolled", "scan", "switch"):
         raise ValueError(f"chain must be 'unrolled', 'scan' or 'switch', "
                          f"got {chain!r}")
@@ -177,10 +198,14 @@ def make_batch_loss_fn(encoders, decoders, init_state, criterion,
         return pairs
 
     def cast(t):
-        return t.to(compute_dtype) if t.is_floating_point() else t
+        if torch.is_tensor(t) and t.is_floating_point():
+            return t.to(compute_dtype)
+        return t
 
     def loss_fn(params, data, targets, sample_mask, generator, init_offset,
-                train: bool, drop=None, seq=None, perm=None):
+                train: bool, drop=None, seq=None, perm=None,
+                batch_stats=None):
+        nan_any = None if batch_stats is None else batch_stats.nan_any
         if compute_dtype is not None:
             params = tree_map(cast, params)
             data = tuple(cast(x) for x in data)
@@ -198,7 +223,7 @@ def make_batch_loss_fn(encoders, decoders, init_state, criterion,
                 forward_chain_executions(
                     encoders, init_state, params, data, sample_mask,
                     order=order, nan_skip=nan_skip, init_offset=init_offset,
-                    train=train, generator=generator)
+                    train=train, generator=generator, nan_any=nan_any)
             exec_grid = decode_grid(decoders, params, states, targets,
                                     sample_mask, ok_x, criterion)
             grid = combine_executions(order, n_enc, exec_grid, sc_x, ok_x,
@@ -213,15 +238,18 @@ def make_batch_loss_fn(encoders, decoders, init_state, criterion,
                     nan_skip=nan_skip, init_offset=init_offset, train=train,
                     generator=generator,
                     widths=switch_widths(encoders, data)
-                    if chain == "switch" else None)
+                    if chain == "switch" else None, nan_any=nan_any)
             grid = decode_grid(decoders, params, states, targets, sample_mask,
                                row_ok, criterion)
         global_err = grid["err_loss"].sum() / (n_dec * (n_enc + 1))
         global_sc = state_change.sum() / n_enc
         loss = global_err * err_penalty + global_sc * state_change_penalty
+        if batch_stats is not None:
+            loss = loss * batch_stats.scale
         if presence_penalty and train:
             loss = loss + presence_penalty * presence_penalty_term(
-                states, data, sample_mask, order)
+                states, data, sample_mask, order,
+                None if batch_stats is None else batch_stats.axis)
         aux = {
             "enc_gates": row_ok[1:] if nan_skip == "batch" else None,
             "err_loss": grid["err_loss"],
@@ -272,18 +300,26 @@ def epoch_loss(host_sums: dict, n_batches: int) -> float:
     return float(host_sums["err_loss"].mean() / n_batches)
 
 
-def gated_update(optimizer, grads, opt_state, params, enc_gates=None):
+def gated_update(optimizer, grads, opt_state, params, enc_gates=None,
+                 cross_rank=None):
     """Apply one optimizer step to ``params`` in place and return the new
     optimizer state. An optimizer with ``fused_apply`` writes the
     parameters itself (``Adam8bit``, through the fused Adam kernel on a
     CUDA model); otherwise its ``update`` is added to them. ``enc_gates``
-    carries the per-encoder structural skip (``optim``).
+    carries the per-encoder structural skip (``optim``); on a mesh they come
+    from the global batch, so every rank gates alike. ``cross_rank``: on a
+    mesh's model axis, ``(sharded-leaf flags, model axis)``, which the
+    fused update needs for the per-row absmax of a sharded leaf; an
+    elementwise update needs nothing.
 
-    The JAX package can also skip a fully padded batch here; such batches
-    come only from its vmapped k-fold stacking, which is not ported."""
+    The JAX package can also skip a fully padded batch here, which its
+    vmapped k-fold stacking makes; the port has no such batches, and a
+    mesh's step skips the update when the global batch holds no real
+    row (``parallel.dp_step``)."""
     fused = getattr(optimizer, "fused_apply", None)
     if fused is not None:
-        return fused(grads, opt_state, params, enc_gates=enc_gates)
+        kw = {} if cross_rank is None else {"cross_rank": cross_rank}
+        return fused(grads, opt_state, params, enc_gates=enc_gates, **kw)
     updates, opt_state = optimizer.update(grads, opt_state, params,
                                           enc_gates=enc_gates)
     tree_map(lambda p, u: p.add_(u), params, updates)
@@ -312,12 +348,17 @@ def stack_batches(stacks, counts: Sequence[int]):
 
 
 def train_batch(loss_fn, optimizer, params, opt_state, batch, generator,
-                offset: int, seq=None, perm=None):
+                offset: int, seq=None, perm=None, dp=None, n_real: int = 1):
     """One training step on one padded batch: the loss and its gradient
     with respect to every parameter leaf, then ``gated_update``. ``seq``
     and ``perm`` are the batch's encoder sequence and order permutation,
-    when the loss takes them. Returns ``(opt_state, aux)`` with ``aux``
-    detached."""
+    when the loss takes them. On a mesh, ``dp`` (``parallel.dp_step.
+    DataParallel``) runs the step on the rank's rows of the batch, with the
+    global batch's ``n_real`` real rows. Returns ``(opt_state, aux)`` with
+    ``aux`` detached."""
+    if dp is not None:
+        return dp.train_batch(loss_fn, optimizer, params, opt_state, batch,
+                              generator, offset, n_real, seq=seq, perm=perm)
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
     leaves = tree_leaves(live)
     loss, aux = loss_fn(live, *batch, generator, offset, True, seq=seq,
@@ -338,30 +379,37 @@ def _grid_sums(ys: List[dict]) -> dict:
 
 
 def run_train_epoch(loss_fn, optimizer, params, opt_state, batches,
-                    generator, offset: int, seqs=None, perms=None):
+                    generator, offset: int, seqs=None, perms=None, dp=None):
     """Every ``(batch, n_real)`` of ``batches`` (``stack_batches`` or a
     streamed source) through ``train_batch``; batch ``b`` gets ``seqs[b]``
     and the ``b``-th permutation of the iterator ``perms`` when they are
     given. Returns ``(opt_state, sums, batch_log, offset, n_batches)``: the
     per-cell sums of ``GRID_KEYS``, an (n_batches, 3) tensor of (loss, grid
     mean, state change) per batch, all on the device, the init-state cycle
-    offset advanced by the real samples, and the batches run."""
+    offset advanced by the real samples, and the batches run. On a mesh
+    (``dp``) the batches are the rank's rows, and the sums and the log are
+    summed across the data axis once, at the end."""
     ys: List[dict] = []
     for b, (batch, n_real) in enumerate(batches):
         opt_state, aux = train_batch(
             loss_fn, optimizer, params, opt_state, batch, generator, offset,
             seq=None if seqs is None else seqs[b],
-            perm=None if perms is None else next(perms))
+            perm=None if perms is None else next(perms), dp=dp,
+            n_real=n_real)
         offset += n_real
         ys.append({k: aux[k] for k in GRID_KEYS + ("loss", "global_err",
                                                    "global_sc")})
     batch_log = torch.stack([torch.stack([y["loss"], y["global_err"],
                                           y["global_sc"]]) for y in ys])
-    return opt_state, _grid_sums(ys), batch_log, offset, len(ys)
+    sums = _grid_sums(ys)
+    if dp is not None:
+        sums, batch_log = dp.sum_grids(sums, batch_log)
+    return opt_state, sums, batch_log, offset, len(ys)
 
 
 @torch.no_grad()
-def run_eval_epoch(loss_fn, params, batches, offset: int, seqs=None):
+def run_eval_epoch(loss_fn, params, batches, offset: int, seqs=None,
+                   dp=None):
     """Every ``(batch, n_real)`` of ``batches`` in evaluation mode, batch
     ``b`` with ``seqs[b]`` when given. Returns ``(sums, final_outputs,
     targets, mask, offset, n_batches)``: the grid sums on the device; per
@@ -369,20 +417,34 @@ def run_eval_epoch(loss_fn, params, batches, offset: int, seqs=None):
     ``(n_batches * B, C_d)``, which the performance suite and the selection
     score read (multimodn.py:354-357); the targets ``(n_batches * B, D)``
     and sample mask ``(n_batches * B,)`` in the same rows; the advanced
-    offset and the batches run."""
+    offset and the batches run. On a mesh (``dp``) each rank evaluates its
+    rows; the sums are summed across ranks and the outputs, targets and
+    mask gathered back into the global order."""
     ys: List[dict] = []
     targets, masks = [], []
+    full = None
     for b, (batch, n_real) in enumerate(batches):
-        _, aux = loss_fn(params, *batch, None, offset, False,
-                         seq=None if seqs is None else seqs[b])
+        seq = None if seqs is None else seqs[b]
+        if dp is None:
+            _, aux = loss_fn(params, *batch, None, offset, False, seq=seq)
+        else:
+            aux = dp.eval_batch(loss_fn, params, batch, offset, seq=seq)
+            full = batch.full
         offset += n_real
         ys.append({k: aux[k] for k in GRID_KEYS + ("final_outputs",)})
         targets.append(batch[1])
         masks.append(batch[2])
     outputs = [torch.cat([y["final_outputs"][d] for y in ys])
                for d in range(len(ys[0]["final_outputs"]))]
-    return (_grid_sums(ys), outputs, torch.cat(targets), torch.cat(masks),
-            offset, len(ys))
+    sums, targets, masks = _grid_sums(ys), torch.cat(targets), \
+        torch.cat(masks)
+    if dp is not None:
+        sums = dp.sum_grids(sums)
+        outputs, targets, masks = (
+            [dp.gather_rows(o, len(ys), full) for o in outputs],
+            dp.gather_rows(targets, len(ys), full),
+            dp.gather_rows(masks, len(ys), full))
+    return sums, outputs, targets, masks, offset, len(ys)
 
 
 def make_selection_score(binary_decoders: Sequence[bool]):

@@ -20,8 +20,9 @@ a CPU model batches are wrapped without a copy and nothing is pinned.
 The functions below keep the JAX package's names and arguments:
 ``train_epoch_streaming``, ``fit_streaming``, ``test_epoch_streaming``,
 ``fit_best_streaming`` (with its ``checkpoint_dir`` resume path) and
-``predict_streaming`` / ``predict_proba_streaming``. There is no device
-mesh here (multi-GPU is ROADMAP.md Queue A item 20).
+``predict_streaming`` / ``predict_proba_streaming``. On a meshed model
+(``parallel``) each rank copies only its rows of a streamed training or
+evaluation batch to its device (``device_batches``).
 """
 from __future__ import annotations
 
@@ -305,17 +306,36 @@ class _HostToDevice:
         return (tuple(tensors[:-2]), tensors[-2], tensors[-1]), n_real
 
 
-def device_batches(loader, device):
+def device_batches(loader, device, dp=None):
     """``(batch, n_real)`` pairs of one pass over a streaming loader on
     ``device``, each batch's copy started before the previous batch is
-    handed out (one ahead)."""
+    handed out (one ahead). ``dp`` (a meshed model's
+    ``parallel.dp_step.DataParallel``): only the rank's rows of each host
+    batch are copied, and each batch is a ``ShardBatch``; ``n_real`` stays
+    the global batch's."""
     copier = _HostToDevice(device)
     it = iter(loader.iter_batches())
-    pending = copier.put(next(it, None))
+
+    def put(batch):
+        if batch is None or dp is None:
+            return copier.put(batch)
+        data, targets, mask = batch
+        *data, targets, mask = dp.host_rows([*data, targets, mask],
+                                            mask.shape[0])
+        return (copier.put((data, targets, mask)), batch[2].shape[0],
+                int(batch[2].sum()))
+
+    def take(item):
+        if dp is None:
+            return copier.take(item)
+        pending, full, n_real = item
+        return dp.wrap(copier.take(pending)[0], full), n_real
+
+    pending = put(next(it, None))
     while pending is not None:
         current = pending
-        pending = copier.put(next(it, None))
-        yield copier.take(current)
+        pending = put(next(it, None))
+        yield take(current)
 
 
 def _require_streaming(*loaders):

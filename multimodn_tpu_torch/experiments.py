@@ -8,7 +8,18 @@ bit-identical to training them one after another. Here the folds and seeds
 run one after another through ``MultiModN.fit_best``, with the same
 arguments and the same per-fold results. Streaming loaders
 (``data.streaming``, ``data.disk``) take the same path through
-``experiments_stream``. The encoder orders reach every fold through its
+``experiments_stream``.
+
+``mesh=`` with a ``fold`` axis (``sweep_axis`` / ``fold_axis``) spreads the
+folds or seeds over the ranks of that axis: fold (or seed) ``i`` trains on
+rank ``i mod n``, and every rank gets every result, in fold or seed order,
+with its model on the rank's device (``_spread``). The JAX package pads the
+fold axis to a multiple of the mesh and drops the padding; round-robin
+needs no padding. A model-owned mesh (``model_factory`` building
+``MultiModN(mesh=...)``) trains each fold data-parallel instead, and the
+two are exclusive, as in the JAX package.
+
+The encoder orders reach every fold through its
 model (``MultiModN._resolve_order``): loaders with one or per-batch
 sequences, and ``shuffle_mode`` on a chain that shuffles per batch, where
 each fold draws the stream a fresh model of its seed would.
@@ -23,10 +34,6 @@ import torch
 from multimodn_tpu_torch.checkpoint import _loader_state, _restore_loader
 from multimodn_tpu_torch.interop import adapt_loader, adapt_optimizer
 from multimodn_tpu_torch.optim import Optimizer
-
-MESH_NOT_PORTED = ("mesh=: sharding the {axis} axis across GPUs is not "
-                   "ported yet (ROADMAP.md Queue A item 20)")
-
 
 def _stack_sums(per_epoch: List[dict]) -> dict:
     """Per-epoch grid-sum dicts -> one dict of (epochs, ...) arrays."""
@@ -54,6 +61,97 @@ def _check_binary(model, name: str):
             f"{name} requires at least one binary (n_classes==2) decoder: "
             "the AUROC+BAC selection score is undefined otherwise (same "
             "contract as MultiModN.fit_best).")
+
+
+def _fold_group(mesh, axis: str):
+    """The mesh's ``axis`` group (JAX ``experiments.py:346-351``)."""
+    names = tuple(getattr(mesh, "axis_names", ()))
+    if axis not in names:
+        raise ValueError(f"mesh has no '{axis}' axis (axes: {names})")
+    return mesh.axis(axis)
+
+
+OWNED_MESH = {
+    "fold": ("fold-axis sharding and a model-owned mesh are mutually "
+             "exclusive: model_factory must build mesh-free models (the fold "
+             "axis is the parallel axis here; batch/TP sharding would nest "
+             "meshes). Drop mesh= from the factory or from kfold_fit_best."),
+    "seed": ("seed-axis sharding and a model-owned mesh are mutually "
+             "exclusive (same rule as kfold_fit_best): model_factory must "
+             "build mesh-free models.")}
+
+
+def _fold_template(model_factory, seeds, what: str):
+    """The first run's model, built on every rank before any other (a
+    model that owns a mesh builds collectively), checked: a fold or seed
+    mesh excludes models that own a mesh (JAX ``experiments.py:177-182``,
+    ``:356-361``)."""
+    template = model_factory(seeds[0])
+    if template.dp_engine == "shard_map":
+        raise ValueError(
+            "fold/seed-axis sharding (mesh=) and dp_engine='shard_map' "
+            "models are mutually exclusive: the template's data mesh "
+            "carries the explicit collectives; the fold axis is vmapped "
+            "over it. Drop mesh= or build auto-engine models.")
+    if template.mesh is not None:
+        raise ValueError(OWNED_MESH[what])
+    return template
+
+
+def _portable(result: dict) -> dict:
+    """A result as it travels to the other ranks: the model pickles with
+    whole numpy parameters; its optimizer state rides beside it."""
+    from multimodn_tpu_torch.checkpoint import _to_numpy
+    model = result["model"]
+    return dict(result, opt_state=None if model.opt_state is None
+                else _to_numpy(model.opt_state))
+
+
+def _arrived(result: dict, device, optimizer) -> dict:
+    """Another rank's result on this rank's ``device``, its optimizer state
+    bound to ``optimizer`` as training left it."""
+    from multimodn_tpu_torch.checkpoint import opt_state_from_numpy
+    from multimodn_tpu_torch.core.tree import tree_map
+    result = dict(result)
+    model, state = result.pop("model"), result.pop("opt_state")
+    model.device = torch.device(device)
+    model.params = tree_map(lambda t: t.to(model.device), model.params)
+    model.init_state.to(model.device)
+    if state is not None:
+        model.opt_state = opt_state_from_numpy(optimizer, state,
+                                               model.params)
+        model._opt = optimizer
+    result["model"] = model
+    return result
+
+
+def _build(model_factory, seeds, group, template=None) -> dict:
+    """``{i: model_factory(seeds[i])}`` for the runs this rank trains (all
+    of them without a fold group), built before any of them trains; run 0
+    reuses ``template`` when given."""
+    return {i: template if i == 0 and template is not None
+            else model_factory(s) for i, s in enumerate(seeds)
+            if group is None or i % group.size == group.index}
+
+
+def _spread(group, n_runs: int, run, optimizer) -> List[dict]:
+    """``run(i)`` for the runs ``i`` with ``i mod n == rank`` of the fold
+    ``group``; every rank gets all ``n_runs`` results in order, models on
+    its device."""
+    mine = {i: run(i) for i in range(n_runs) if i % group.size == group.index}
+    if group.size == 1:
+        return [mine[i] for i in range(n_runs)]
+    parts = group.all_gather_object(
+        {i: _portable(r) for i, r in mine.items()})
+    device = next(iter(mine.values()))["model"].device if mine else None
+    out = []
+    for i in range(n_runs):
+        if i in mine:
+            out.append(mine[i])
+        else:
+            r = parts[i % group.size][i]
+            out.append(_arrived(r, device or r["model"].device, optimizer))
+    return out
 
 
 def _fit_one(model, train_loader, val_loader, optimizer, criterion,
@@ -107,11 +205,12 @@ def kfold_fit_best(
             fold's losses divide by its own batch counts, as its
             ``fit_best`` does (the JAX package's vmapped program divides a
             shorter fold's by the longest fold's).
-        mesh, fold_axis: not ported (fold sharding across GPUs, ROADMAP.md
-            Queue A item 20); ``mesh`` raises ``NotImplementedError``. So
-            does ``shuffle_mode`` on an explicit ``chain_mode='unrolled'``,
-            as in the JAX package: its per-call order would be frozen for
-            every epoch.
+        mesh, fold_axis: spread the folds over the ranks of the mesh's
+            ``fold_axis`` (module docstring); the factory must build
+            mesh-free models. ``shuffle_mode`` on an explicit
+            ``chain_mode='unrolled'`` raises ``NotImplementedError``, as in
+            the JAX package: its per-call order would be frozen for every
+            epoch.
 
     Streaming folds (``experiments_stream``): every loader streams or none
     does; no loader may be shuffled and each needs sized geometry, as in
@@ -137,10 +236,9 @@ def kfold_fit_best(
         return kfold_fit_best_streamed(
             model_factory, folds, optimizer, criterion, epochs=epochs,
             seeds=seeds, mesh=mesh, patience=patience, on_epoch=on_epoch)
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED.format(axis="fold"))
     if patience is not None and patience < 1:
         raise ValueError(f"patience must be >= 1, got {patience}")
+    group = None if mesh is None else _fold_group(mesh, fold_axis)
     shuffles = [bool(getattr(f[0], "shuffle", False)) for f in folds]
     if any(shuffles) and not all(shuffles):
         raise ValueError(
@@ -149,13 +247,22 @@ def kfold_fit_best(
     seeds = list(seeds) if seeds is not None else list(range(len(folds)))
     if len(seeds) != len(folds):
         raise ValueError(f"{len(seeds)} seeds for {len(folds)} folds")
-    models = [model_factory(s) for s in seeds]
-    if models:
-        _check_binary(models[0], "kfold_fit_best")
-        _check_shuffle_mode(models[0], "kfold_fit_best")
-    return [_fit_one(model, tr, va, optimizer, criterion, epochs, patience,
-                     on_epoch)
-            for model, (tr, va) in zip(models, folds)]
+    if not folds:
+        return []
+    template = None if group is None else \
+        _fold_template(model_factory, seeds, "fold")
+    models = _build(model_factory, seeds, group, template)
+    template = models.get(0, template) or next(iter(models.values()))
+    _check_binary(template, "kfold_fit_best")
+    _check_shuffle_mode(template, "kfold_fit_best")
+
+    def run(i):
+        return _fit_one(models[i], *folds[i], optimizer, criterion, epochs,
+                        patience, on_epoch)
+
+    if group is None:
+        return [run(i) for i in range(len(folds))]
+    return _spread(group, len(folds), run, optimizer)
 
 
 def sweep_fit_best(
@@ -179,8 +286,10 @@ def sweep_fit_best(
     before it, and it is left as the last seed left it.
 
     ``patience`` and ``on_epoch`` are ``kfold_fit_best``'s (payloads seed
-    after seed). ``mesh`` / ``sweep_axis`` (sharding the seed axis across
-    GPUs, ROADMAP.md Queue A item 20) raise ``NotImplementedError``.
+    after seed). ``mesh`` / ``sweep_axis``: spread the seeds over the ranks
+    of the mesh's ``sweep_axis`` (module docstring); each rank puts a
+    shuffled train loader back before each of its seeds, so each seed's
+    result is the same, and leaves it as its last seed left it.
     ``Adam8bit`` updates through its fused kernel on a CUDA model, as in
     ``fit_best`` (the JAX package asks for its vmap-safe mode here).
 
@@ -200,21 +309,28 @@ def sweep_fit_best(
             model_factory, [(train_loader, val_loader)], optimizer,
             criterion, epochs=epochs, seeds=list(seeds), mesh=mesh,
             patience=patience, on_epoch=on_epoch, _shared_loaders=True)
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED.format(axis="seed"))
     if patience is not None and patience < 1:
         raise ValueError(f"patience must be >= 1, got {patience}")
+    group = None if mesh is None else _fold_group(mesh, sweep_axis)
+    seeds = list(seeds)
+    if not seeds:
+        return []
     start = _loader_state(train_loader)
-    models = [model_factory(s) for s in seeds]
-    if models:
-        _check_binary(models[0], "sweep_fit_best")
-        _check_shuffle_mode(models[0], "sweep_fit_best")
-    results = []
-    for model in models:
+    template = None if group is None else \
+        _fold_template(model_factory, seeds, "seed")
+    models = _build(model_factory, seeds, group, template)
+    template = models.get(0, template) or next(iter(models.values()))
+    _check_binary(template, "sweep_fit_best")
+    _check_shuffle_mode(template, "sweep_fit_best")
+
+    def run(i):
         _restore_loader(train_loader, start)
-        results.append(_fit_one(model, train_loader, val_loader, optimizer,
-                                criterion, epochs, patience, on_epoch))
-    return results
+        return _fit_one(models[i], train_loader, val_loader, optimizer,
+                        criterion, epochs, patience, on_epoch)
+
+    if group is None:
+        return [run(i) for i in range(len(seeds))]
+    return _spread(group, len(seeds), run, optimizer)
 
 
 def fold_history(result: dict, targets: List[str],

@@ -7,7 +7,8 @@ The JAX package vmaps the fold or seed axis over batches streamed in
 lockstep, padding shorter folds with empty batches. Here each fold or seed
 runs ``MultiModN.fit_best`` over its own streamed batches, one after
 another, which is what the JAX package's streamed programs are
-documented bit-equal to; the guards are the JAX package's.
+documented bit-equal to; the guards are the JAX package's. Models built
+with a mesh train each fold data-parallel; a fold mesh is refused.
 """
 from __future__ import annotations
 
@@ -32,14 +33,28 @@ def _require_sized(ldr, role: str):
             f"dataset. Use a sized loader.")
 
 
+def _check_engine(template):
+    """The JAX package's engine guard (``experiments_stream.py:60-65``).
+    Models that own a mesh on the auto engine train each fold
+    data-parallel, every rank copying only its rows of a batch
+    (``data.streaming.device_batches``)."""
+    if template.dp_engine == "shard_map":
+        raise NotImplementedError(
+            "streamed kfold/sweep supports the auto (GSPMD) engine only: "
+            "fold-vmapping the explicit shard_map per-batch step adds no "
+            "collective the auto partition lacks here. Build auto-engine "
+            "models (equality across engines is pinned for the non-vmapped "
+            "streamed paths in tests/test_streaming.py).")
+
+
 def _validate_streamed(loaders, mesh, patience):
-    """The JAX package's guards for streamed experiments (its
-    ``dp_engine='shard_map'`` guard has no counterpart: the port has one
-    engine)."""
+    """The JAX package's guards for streamed experiments
+    (``experiments_stream.py:66-98``)."""
     if mesh is not None:
         raise ValueError(
-            "fold/seed-axis sharding (mesh=) is a fused-path feature; "
-            "streamed experiments take no mesh.")
+            "fold/seed-axis sharding (mesh=) is a fused-path feature; the "
+            "streamed programs shard the BATCH axis via the model's own "
+            "mesh instead (model_factory models may carry mesh=).")
     if patience is not None and patience < 1:
         raise ValueError(f"patience must be >= 1, got {patience}")
     for ldr in loaders:
@@ -83,6 +98,7 @@ def kfold_fit_best_streamed(
     _validate_streamed(loaders, mesh, patience)
     models = [model_factory(s) for s in seeds]
     if models:
+        _check_engine(models[0])
         _check_binary(models[0], "kfold_fit_best")
         _check_shuffle_mode(models[0], "streamed kfold/sweep")
     pairs = folds * n_runs if _shared_loaders else folds

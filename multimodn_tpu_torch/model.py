@@ -23,6 +23,11 @@ one encoder sequence or one per batch, a static order may repeat an encoder,
 and ``shuffle_mode`` draws a fresh order per training batch on the traced
 chains (``chain_mode`` 'auto', 'scan', 'switch'), or once per call with
 ``random.Random(seed)`` on an explicit ``chain_mode='unrolled'``.
+
+On a device mesh (``mesh=``, ``parallel``) each rank runs this object on
+its own device: training and evaluation take the rank's rows of every
+global batch through ``parallel.dp_step``, whatever ``dp_engine`` says,
+and the inference entry points run rank-local on whole weights.
 """
 from __future__ import annotations
 
@@ -59,7 +64,8 @@ from multimodn_tpu_torch.core.step import (
     to_host,
     update_best,
 )
-from multimodn_tpu_torch.core.tree import tree_leaves, tree_map
+from multimodn_tpu_torch.core.tree import tree_leaves, tree_map, \
+    tree_unflatten
 from multimodn_tpu_torch.interop import adapt_loader, adapt_optimizer
 from multimodn_tpu_torch.ops.fused_chain import ChainSpec, fused_chain_forward
 from multimodn_tpu_torch.optim import Optimizer
@@ -67,10 +73,27 @@ from multimodn_tpu_torch.utils.summary import summarize_model
 
 CHAIN_MODES = ("auto", "unrolled", "scan", "switch")
 TRACED_CHAINS = ("scan", "switch")
+DP_ENGINES = ("auto", "shard_map")
+# Column sharding covers these families (core.nn.dense_apply); the others
+# wait on ROADMAP.md Queue A item 23.
+TP_NOT_PORTED = (
+    "a mesh 'model' axis over 1 column-shards dense layers of the MLP "
+    "family (MLPEncoder, MIMICMLPEncoder, SLP encoders), dense decoders "
+    "and init states only; {name} is not column-sharded yet (ROADMAP.md "
+    "Queue A item 23). Use a data-only mesh for this model.")
 # Keys the per-batch order permutations of a training epoch apart from its
 # dropout draws (the JAX package folds the same constant into its batch key,
 # core/step.py:221).
 ORDER_FOLD = 982451653
+
+
+def _device_index(device):
+    """``(type, index)`` of a device, a bare ``'cuda'`` taken as the current
+    card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return "cuda", torch.cuda.current_device()
+    return device.type, device.index
 
 
 class TrainingPlan(NamedTuple):
@@ -113,7 +136,25 @@ class MultiModN:
     in fp32 (``core.nn.dense_apply``), losses and metrics reduce in fp32,
     and the master parameters and optimizer state stay fp32. ``predict``,
     ``predict_proba``, ``get_states``, ``fused_forward`` and
-    ``export_compiled`` stay fp32, as in the JAX package."""
+    ``export_compiled`` stay fp32, as in the JAX package.
+
+    ``mesh`` (``parallel.make_mesh``): train over the ranks of a device
+    mesh, one process per device. The model lives on the rank's device
+    (``mesh.device``); parameters are built from ``seed`` on every rank,
+    broadcast from the mesh's first rank and placed by
+    ``parallel.shard_params`` (column pieces under a ``model`` axis).
+    Training, ``test`` and the fits take each rank's rows of every global
+    batch (``parallel.dp_step``): results equal the mesh-free model's up to
+    the order of the cross-rank sums, and bit for bit on one rank.
+    ``predict``, ``predict_proba``, ``get_states`` and ``fused_forward``
+    answer the whole request on every rank, on whole weights, with no
+    collective on the request (on a model axis the weights are gathered
+    once per call, so every rank makes the call); ``state_dict``,
+    ``parameters()``, pickles and exports hold whole, mesh-free leaves.
+    ``dp_engine``: 'auto' or 'shard_map', the JAX package's names and
+    guards ('shard_map' needs a mesh, no model axis, no per-batch
+    sequences, a batch size that divides the data axis); one engine runs
+    both here (``parallel.dp_step``)."""
 
     def __init__(
         self,
@@ -133,7 +174,29 @@ class MultiModN:
         scan_unroll=None,
         device=None,
         compute_dtype=None,
+        mesh=None,
+        dp_engine: str = "auto",
     ):
+        if dp_engine not in DP_ENGINES:
+            raise ValueError(
+                f"dp_engine must be 'auto' or 'shard_map', got {dp_engine!r}")
+        if dp_engine == "shard_map":
+            if mesh is None:
+                raise ValueError("dp_engine='shard_map' requires a mesh")
+            if "model" in mesh.axis_names and mesh.shape["model"] > 1:
+                raise ValueError(
+                    "dp_engine='shard_map' is data-parallel only (its "
+                    "in_specs replicate parameters); use the auto engine "
+                    "for DP x TP meshes.")
+        if mesh is not None:
+            if mesh.coords is None:
+                raise ValueError(f"the mesh's ranks {mesh.everyone.ranks} "
+                                 f"do not include this process's rank")
+            if device is not None and \
+                    _device_index(device) != _device_index(mesh.device):
+                raise ValueError(f"device {device} is not the mesh's device "
+                                 f"{mesh.device} on this rank")
+            device = mesh.device
         self.device = resolve_device(device)
         self.state_size = state_size
         self.encoders = list(encoders)
@@ -189,6 +252,12 @@ class MultiModN:
             "encoders": [e.init(gen, self.device) for e in self.encoders],
             "decoders": [d.init(gen, self.device) for d in self.decoders],
         }
+        self.mesh = mesh
+        self.dp_engine = dp_engine
+        self._dp = None
+        if mesh is not None:
+            self._check_mesh_modules(mesh)
+            self._place_on_mesh(self.params, broadcast=True)
         self._chain_spec = None
         # Samples served by a StaticInitState so far: its round-robin phase
         # continues across calls, like the reference's shared
@@ -197,6 +266,105 @@ class MultiModN:
         self._opt = None            # the optimizer opt_state belongs to
         self.opt_state = None
         self._epoch_counter = 0     # seeds each training epoch's draws
+
+    # ------------------------------------------------------------------
+    # Mesh
+    # ------------------------------------------------------------------
+    def _check_mesh_modules(self, mesh):
+        """Column sharding covers the MLP family, dense decoders and init
+        states; batch statistics (ResNet's BatchNorm) are not reduced
+        across a data axis."""
+        from multimodn_tpu_torch.decoders.decoders import ClassDecoder, \
+            MLPDecoder
+        from multimodn_tpu_torch.encoders.mlp import MIMICMLPEncoder, \
+            MLPEncoder
+        if mesh.axis_size("model") > 1:
+            for m in self.encoders + self.decoders:
+                if not isinstance(m, (MLPEncoder, MIMICMLPEncoder,
+                                      ClassDecoder, MLPDecoder)):
+                    raise NotImplementedError(
+                        TP_NOT_PORTED.format(name=type(m).__name__))
+        if mesh.axis_size("data") > 1:
+            for e in self.encoders:
+                if getattr(e, "_accepts_sample_mask", False):
+                    raise NotImplementedError(
+                        f"{type(e).__name__} normalizes with batch "
+                        "statistics, which a mesh 'data' axis over 1 would "
+                        "take per rank (ROADMAP.md Queue A item 23); train "
+                        "it on one rank.")
+
+    def _place_on_mesh(self, whole: dict, broadcast: bool = False):
+        """Shard a tree of whole parameter leaves over the mesh (after
+        broadcasting it from the mesh's first rank) and set up the step."""
+        from multimodn_tpu_torch.parallel.dp_step import DataParallel
+        from multimodn_tpu_torch.parallel.sharding import param_specs, \
+            shard_params
+        if broadcast:
+            leaves = tree_leaves(whole)
+            flat = torch.cat([t.reshape(-1) for t in leaves])
+            self.mesh.everyone.broadcast(flat)
+            pieces = torch.split(flat, [t.numel() for t in leaves])
+            whole = tree_unflatten(whole, [p.reshape(t.shape) for p, t in
+                                           zip(pieces, leaves)])
+        specs = param_specs(whole, self.mesh)
+        self.params = shard_params(whole, self.mesh)
+        self._dp = DataParallel(self.mesh, specs, self.nan_skip)
+
+    def _whole(self, params: dict) -> dict:
+        """Whole leaves of a tree shaped like the parameters (the model's
+        own pieces on a mesh with a model axis)."""
+        if self._dp is None or self._dp.model.size == 1:
+            return params
+        from multimodn_tpu_torch.parallel.sharding import gather_params
+        return gather_params(params, self.mesh, self._dp.specs)
+
+    def _whole_params(self) -> dict:
+        return self._whole(self.params)
+
+    def _pieces(self, whole: dict) -> dict:
+        """This rank's pieces of a tree of whole parameter leaves (the tree
+        itself without a mesh)."""
+        if self._dp is None:
+            return whole
+        from multimodn_tpu_torch.parallel.sharding import shard_params
+        return shard_params(whole, self.mesh)
+
+    def _whole_opt_state(self):
+        """The optimizer state with whole leaves (a checkpoint's form)."""
+        if self.opt_state is None or self._dp is None or \
+                self._dp.model.size == 1:
+            return self.opt_state
+        from multimodn_tpu_torch.parallel.sharding import gather_params, \
+            opt_state_specs
+        return gather_params(self.opt_state, self.mesh, opt_state_specs(
+            self.opt_state, self._dp.specs))
+
+    def _place_opt_state(self, whole):
+        """A whole (mesh-free) optimizer state placed like the parameters:
+        ``parallel.shard_opt_state`` on a mesh."""
+        if self._dp is None or whole is None:
+            return whole
+        from multimodn_tpu_torch.parallel.sharding import shard_opt_state
+        return shard_opt_state(whole, self.mesh, specs=self._dp.specs)
+
+    def _check_engine(self, per_batch: bool, *loaders):
+        """The JAX package's ``dp_engine='shard_map'`` guards
+        (``model.py:310-314``, ``:483-497``, ``:631-637``)."""
+        if self.dp_engine != "shard_map":
+            return
+        n_dev = self.mesh.shape.get("data", 1)
+        for ldr in loaders:
+            if ldr is not None and (ldr.batch_size or 0) % n_dev != 0:
+                raise ValueError(
+                    f"dp_engine='shard_map' needs the batch size "
+                    f"({ldr.batch_size}) to divide the data mesh axis "
+                    f"({n_dev}); pick a divisible batch_size or use the "
+                    f"auto engine.")
+        if per_batch:
+            raise ValueError(
+                "dp_engine='shard_map' does not support per-batch encoding "
+                "sequences; use the auto engine (the explicit engine would "
+                "otherwise be silently swapped out).")
 
     # ------------------------------------------------------------------
     # Cycle bookkeeping
@@ -400,15 +568,21 @@ class MultiModN:
         batches from ``iter_batches()``, no epoch stacks."""
         return hasattr(loader, "iter_batches")
 
-    def _batches(self, loader):
+    def _batches(self, loader, shard: bool = False):
         """``(batch, n_real)`` pairs of one pass over ``loader`` on this
         model's device: slices of an ``ArrayLoader``'s epoch stacks, or a
-        streaming loader's batches copied one ahead of use."""
+        streaming loader's batches copied one ahead of use. ``shard`` (a
+        meshed model's training and evaluation): each batch is the rank's
+        rows (``parallel.dp_step.ShardBatch``; a streamed batch copies only
+        those), ``n_real`` the global batch's real rows."""
+        dp = self._dp if shard else None
         if self._streams(loader):
             from multimodn_tpu_torch.data.streaming import device_batches
-            return device_batches(loader, self.device)
-        return stack_batches(loader.stacks(self.device),
-                             loader.batch_counts())
+            return device_batches(loader, self.device, dp)
+        pairs = stack_batches(loader.stacks(self.device),
+                              loader.batch_counts())
+        return pairs if dp is None else \
+            ((dp.shard(batch), n_real) for batch, n_real in pairs)
 
     @torch.no_grad()
     def _predict(self, x: Sequence, encoder_sequence):
@@ -417,7 +591,7 @@ class MultiModN:
         fwd = self._forward(self._resolve_order(None, encoder_sequence),
                             "none")
         preds, outputs, _, _ = fwd(
-            self.params, data, torch.ones((n,), device=self.device),
+            self._whole_params(), data, torch.ones((n,), device=self.device),
             init_offset=self._cycle_base())
         self._advance_cycle(n)
         return preds, outputs
@@ -429,8 +603,9 @@ class MultiModN:
         forwards = self._batch_forwards(loader, "none")
         start = offset = self._cycle_base()
         preds, outs = [], []
+        params = self._whole_params()
         for (data, _targets, mask), n_real in self._batches(loader):
-            p, o, _, _ = next(forwards)(self.params, data, mask,
+            p, o, _, _ = next(forwards)(params, data, mask,
                                         init_offset=offset)
             offset += n_real
             preds.append(p[:, :, :n_real])
@@ -495,10 +670,13 @@ class MultiModN:
             [~torch.isnan(m).flatten(1).any(dim=1) for m in data],
             dim=1).float()
         data = tuple(torch.nan_to_num(m).contiguous() for m in data)
+        # One gather per call on a model-sharded mesh: the kernel reads
+        # whole weights, packed for the launch in fused_chain_forward.
+        params = self._whole_params()
         init_row = self.init_state.apply(
-            self.params["init_state"], 1, 0)[0].contiguous()
-        return fused_chain_forward(self._chain_spec, self.params, data,
-                                   valid, init_row)
+            params["init_state"], 1, 0)[0].contiguous()
+        return fused_chain_forward(self._chain_spec, params, data, valid,
+                                   init_row)
 
     @torch.no_grad()
     def get_states(self, loader) -> List[np.ndarray]:
@@ -510,8 +688,9 @@ class MultiModN:
         forwards = self._batch_forwards(loader, self.nan_skip)
         start = offset = self._cycle_base()
         states = []
+        params = self._whole_params()
         for (data, _targets, mask), n_real in self._batches(loader):
-            final = next(forwards)(self.params, data, mask,
+            final = next(forwards)(params, data, mask,
                                    init_offset=offset)[3]
             offset += n_real
             states.append(final[mask > 0])
@@ -575,8 +754,8 @@ class MultiModN:
         start = self._cycle_base()
         self.opt_state, sums, batch_log, offset, n_batches = run_train_epoch(
             plan.loss_fn, optimizer, self.params, self.opt_state,
-            self._batches(loader), self._generator(epoch), start, seqs,
-            perms)
+            self._batches(loader, shard=True), self._generator(epoch), start,
+            seqs, perms, dp=self._dp)
         self._advance_cycle(offset - start)
         return sums, batch_log, n_batches
 
@@ -586,7 +765,8 @@ class MultiModN:
         seqs = self._loader_seqs(loader) if per_batch else None
         start = self._cycle_base()
         sums, outputs, targets, mask, offset, n_batches = run_eval_epoch(
-            loss_fn, self.params, self._batches(loader), start, seqs)
+            loss_fn, self.params, self._batches(loader, shard=True), start,
+            seqs, dp=self._dp)
         self._advance_cycle(offset - start)
         return (sums, outputs, targets, mask), n_batches
 
@@ -603,6 +783,7 @@ class MultiModN:
             per_batch = self._fused_per_batch(train_loader, val_loader)
         else:
             per_batch = self._has_batch_seqs(train_loader)
+        self._check_engine(per_batch, train_loader, val_loader)
         if per_batch:
             for ldr in (train_loader, val_loader):
                 if ldr is not None:
@@ -865,7 +1046,7 @@ class MultiModN:
         info = {
             "best_epoch": best_epoch,
             "best_score": best_score,
-            "best_params": params_to_numpy(best_params),
+            "best_params": params_to_numpy(self._whole(best_params)),
             "scores": np.asarray(scores, np.float32),
             "epochs_ran": len(scores),
         }
@@ -888,7 +1069,12 @@ class MultiModN:
         state["_chain_spec"] = None
         state["_opt"] = None
         state["opt_state"] = None
-        state["params"] = params_to_numpy(self.params)
+        state["params"] = params_to_numpy(self._whole_params())
+        # Meshes do not pickle (JAX model.py:1295-1305): an unpickled model
+        # is mesh-free, on the auto engine.
+        state["mesh"] = None
+        state["_dp"] = None
+        state["dp_engine"] = "auto"
         return state
 
     def __setstate__(self, state):
@@ -897,13 +1083,16 @@ class MultiModN:
         self.__dict__.setdefault("chain_mode", "unrolled")
         self.__dict__.setdefault("scan_unroll", None)
         self.__dict__.setdefault("compute_dtype", None)
+        self.__dict__.setdefault("mesh", None)
+        self.__dict__.setdefault("_dp", None)
+        self.__dict__.setdefault("dp_engine", "auto")
         self.__dict__.setdefault("_shuffle_rng", random.Random(self._seed))
         self.params = params_from_jax(self.params, self.device)
 
     def state_dict(self) -> dict:
         """The parameter tree as numpy arrays, in the JAX package's
-        ``state_dict`` layout."""
-        return params_to_numpy(self.params)
+        ``state_dict`` layout (whole leaves on a mesh)."""
+        return params_to_numpy(self._whole_params())
 
     def _jax_storage(self) -> dict:
         """``state_dict()`` in the storage the JAX package keeps for this
@@ -930,7 +1119,8 @@ class MultiModN:
 
     def load_state_dict(self, state: dict):
         """Load a parameter tree: this package's ``state_dict`` or the JAX
-        package's (per-encoder or scan-stacked storage)."""
+        package's (per-encoder or scan-stacked storage). On a mesh the
+        whole leaves are sharded again (JAX ``model.py:1322-1331``)."""
         params = params_from_jax(state, self.device)
         if len(params["encoders"]) != len(self.encoders) or \
                 len(params["decoders"]) != len(self.decoders):
@@ -938,4 +1128,7 @@ class MultiModN:
                 f"state holds {len(params['encoders'])} encoders and "
                 f"{len(params['decoders'])} decoders, the model "
                 f"{len(self.encoders)} and {len(self.decoders)}")
-        self.params = params
+        if self.mesh is not None:
+            self._place_on_mesh(params)
+        else:
+            self.params = params

@@ -20,6 +20,18 @@ This module holds:
   version; CUDA tensors launch the kernel or raise, with no fallback.
   ``FUSED_ADAM.launches`` counts the launches.
 
+The cross-rank form: under a mesh's ``model`` axis a leaf may be a column
+piece of a whole leaf, so each of its rows is split across ranks and the
+row's absmax (the JAX package's, which GSPMD reduces over the whole row) is
+a MAX across the axis. Such a leaf (``split``) takes the kernel's split-row
+path whatever its width: pass 1 writes ``p'`` and each chunk's absmax into
+the row's int32 scratch words (the bits of non-negative floats, so an
+integer max is the float max and a NaN still wins), an ``all_reduce(MAX)``
+over the model axis (``row_group``) runs on those words between the two
+launches, and pass 2 requantizes by the whole row's absmax. The plain
+version takes the same MAX of its row absmax (``quantize_rows``); both
+equal ``multi_leaf_update_ref`` on the whole leaf, sliced.
+
 Every step is float32, rounded on its own, in the JAX package's order; the
 kernel computes the same and matches this version bit for bit. Three habits
 of PyTorch would round differently and are avoided: ``scalar / tensor`` is
@@ -72,7 +84,14 @@ def code_dtype(fmt: str) -> torch.dtype:
     return torch.int8 if fmt == "int8" else torch.float8_e4m3fn
 
 
-def quantize_rows(x: torch.Tensor, fmt: str = "fp8"):
+def row_absmax_max(absmax: torch.Tensor, row_group) -> torch.Tensor:
+    """The MAX over ``row_group`` (a mesh axis, ``parallel.collectives.
+    AxisGroup``) of per-row absmax values, taken on their int32 bits."""
+    bits = absmax.contiguous().view(torch.int32)
+    return row_group.all_reduce(bits, "max").view(torch.float32)
+
+
+def quantize_rows(x: torch.Tensor, fmt: str = "fp8", row_group=None):
     """Blockwise absmax 8-bit quantization along the last axis: returns
     ``(codes like x, float32 scales of scale_shape(x.shape))``; dequantize
     with ``codes * scales``. Zero rows get scale 0 and codes 0.
@@ -80,13 +99,18 @@ def quantize_rows(x: torch.Tensor, fmt: str = "fp8"):
     A NaN or Inf in a row fails the ``absmax > 0`` test, so the row's finite
     elements code to 0 and its scale becomes NaN or Inf: the whole row
     dequantizes to NaN on the next step, as in the JAX package. An int8 code
-    of a NaN is 0 (XLA's float-to-int conversion)."""
+    of a NaN is 0 (XLA's float-to-int conversion).
+
+    ``row_group``: ``x`` holds the rank's columns of rows split across a
+    mesh axis; the absmax is the whole row's (``row_absmax_max``)."""
     x = x.float()
     if x.dim() == 0:
         q, s = quantize_rows(x.reshape(1), fmt)
         return q.reshape(()), s.reshape(())
     q_top = Q_MAX if fmt == "int8" else FP8_MAX
     absmax = x.abs().amax(dim=-1, keepdim=True)
+    if row_group is not None:
+        absmax = row_absmax_max(absmax, row_group)
     inv = torch.where(absmax > 0,
                       torch.div(torch.full_like(absmax, q_top), absmax),
                       torch.zeros_like(absmax))
@@ -105,11 +129,12 @@ def dequantize(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 
 def moment_update(g, mq, ms, vq, vs, c1, c2, lr, b1, b2, eps, gate=None,
-                  fmt: str = "fp8"):
+                  fmt: str = "fp8", row_group=None):
     """The kernel's math, returning ``(update, mq', ms', vq', vs')`` without
     touching the parameter. ``gate`` (a 0/1 scalar tensor) gives the
     structural skip: frozen moments and a zero update where it is 0.
-    ``c1`` / ``c2`` are the bias corrections ``1 - b^t``."""
+    ``c1`` / ``c2`` are the bias corrections ``1 - b^t``; ``row_group``
+    the cross-rank form's axis (``quantize_rows``)."""
     g = g.float()
     c1, c2 = (torch.as_tensor(c, dtype=torch.float32, device=g.device)
               for c in (c1, c2))
@@ -123,28 +148,33 @@ def moment_update(g, mq, ms, vq, vs, c1, c2, lr, b1, b2, eps, gate=None,
         m_new = m + gate * (1.0 - b1) * (g - m)
         v_new = v + gate * (1.0 - b2) * (g * g - v)
         upd = -lr * gate * (m_new / c1) / (torch.sqrt(v_new / c2) + eps)
-    mq_new, ms_new = quantize_rows(m_new, fmt)
-    vq_new, vs_new = quantize_rows(v_new, fmt)
+    mq_new, ms_new = quantize_rows(m_new, fmt, row_group)
+    vq_new, vs_new = quantize_rows(v_new, fmt, row_group)
     return upd, mq_new, ms_new, vq_new, vs_new
 
 
 def leaf_update_ref(p, g, mq, ms, vq, vs, c1, c2, lr, b1, b2, eps,
-                    gate=None, fmt: str = "fp8"):
+                    gate=None, fmt: str = "fp8", row_group=None):
     """Plain version of the kernel (twin of the JAX package's
     ``_leaf_update_xla``): returns new ``(p', mq', ms', vq', vs')``."""
     upd, mq_new, ms_new, vq_new, vs_new = moment_update(
-        g, mq, ms, vq, vs, c1, c2, lr, b1, b2, eps, gate=gate, fmt=fmt)
+        g, mq, ms, vq, vs, c1, c2, lr, b1, b2, eps, gate=gate, fmt=fmt,
+        row_group=row_group)
     p_new = (p.float() + upd).to(p.dtype)
     return p_new, mq_new, ms_new, vq_new, vs_new
 
 
-def multi_leaf_update_ref(leaves, *, lr, b1, b2, eps, fmt: str = "fp8"):
+def multi_leaf_update_ref(leaves, *, lr, b1, b2, eps, fmt: str = "fp8",
+                          split=None, row_group=None):
     """Plain version of one launch: ``leaf_update_ref`` over ``leaves``,
     each ``(p, g, mq, ms, vq, vs, c12, gate)``; returns the new
-    ``(p', mq', ms', vq', vs')`` of each."""
+    ``(p', mq', ms', vq', vs')`` of each. ``split[i]`` marks a leaf of the
+    cross-rank form over ``row_group``."""
+    split = split or (False,) * len(leaves)
     return [leaf_update_ref(p, g, mq, ms, vq, vs, c12[0], c12[1], lr, b1, b2,
-                            eps, gate=gate, fmt=fmt)
-            for p, g, mq, ms, vq, vs, c12, gate in leaves]
+                            eps, gate=gate, fmt=fmt,
+                            row_group=row_group if cut else None)
+            for (p, g, mq, ms, vq, vs, c12, gate), cut in zip(leaves, split)]
 
 
 def row_lanes(rows: int, cols: int, busy_blocks: int) -> int:
@@ -181,13 +211,16 @@ class LaunchGroup(NamedTuple):
 
 
 @functools.lru_cache(maxsize=64)
-def leaf_table(shapes: Tuple[Tuple[int, ...], ...],
-               busy_blocks: int) -> Tuple[LaunchGroup, ...]:
+def leaf_table(shapes: Tuple[Tuple[int, ...], ...], busy_blocks: int,
+               split: Optional[Tuple[bool, ...]] = None
+               ) -> Tuple[LaunchGroup, ...]:
     """The launch groups of a list of leaf shapes (a leaf is an index into
     ``shapes``; empty leaves are left out) on a card that ``busy_blocks``
     keep busy. Rows that fit a block take ``THREADS // lanes`` rows per
-    block; a wider row takes one block per ``SPLIT_COLS`` columns in each of
+    block; a wider row, and every row of a leaf that ``split`` marks (the
+    cross-rank form), takes one block per ``SPLIT_COLS`` columns in each of
     two passes."""
+    split = split or (False,) * len(shapes)
     live = [i for i, s in enumerate(shapes) if math.prod(s) > 0]
     groups = []
     for g0 in range(0, len(live), MAX_LEAVES):
@@ -195,7 +228,7 @@ def leaf_table(shapes: Tuple[Tuple[int, ...], ...],
         geom, blocks, blocks2, split_rows = [], 0, 0, 0
         for i in idx:
             rows, cols = rows_cols(shapes[i])
-            lanes = row_lanes(rows, cols, busy_blocks)
+            lanes = 0 if split[i] else row_lanes(rows, cols, busy_blocks)
             geom.append((rows, cols, lanes, blocks, blocks2, split_rows))
             if lanes:
                 blocks += -(-rows // (THREADS // lanes))
@@ -209,13 +242,15 @@ def leaf_table(shapes: Tuple[Tuple[int, ...], ...],
     return tuple(groups)
 
 
-def launches_per_update(shapes) -> int:
+def launches_per_update(shapes, split=None) -> int:
     """Kernel launches that ``multi_leaf_update`` makes for these leaf
     shapes on a CUDA device: one per ``MAX_LEAVES`` non-empty leaves, two
-    where one of them has a row wider than ``FIT_COLS``."""
-    live = [s for s in shapes if math.prod(s) > 0]
-    return sum(1 + any(rows_cols(s)[1] > FIT_COLS
-                       for s in live[g0:g0 + MAX_LEAVES])
+    where one of them has a row wider than ``FIT_COLS`` or is a leaf of the
+    cross-rank form (``split``)."""
+    split = split or (False,) * len(shapes)
+    live = [(s, cut) for s, cut in zip(shapes, split) if math.prod(s) > 0]
+    return sum(1 + any(rows_cols(s)[1] > FIT_COLS or cut
+                       for s, cut in live[g0:g0 + MAX_LEAVES])
                for g0 in range(0, len(live), MAX_LEAVES))
 
 
@@ -255,18 +290,21 @@ class FusedAdamKernel:
         return self._busy_blocks[dev]
 
     def launch(self, leaves, shapes, *, lr, b1, b2, eps, fmt,
-               busy_blocks=None):
+               busy_blocks=None, split=None, row_group=None):
         """The launches of one update on PyTorch's current stream, on leaves
         that ``_check_leaves`` accepted; ``shapes`` are their parameters'
         shapes. ``c12`` and ``gate`` stay on the device. ``busy_blocks``
-        (default: 2 per SM of the leaves' card) picks the lanes per row."""
+        (default: 2 per SM of the leaves' card) picks the lanes per row.
+        ``split`` / ``row_group``: the cross-rank form (module docstring):
+        the scratch words are MAX-reduced over ``row_group`` between the
+        passes."""
         lib = self.library()
         dev = leaves[0][0].device
         if busy_blocks is None:
             busy_blocks = self.busy_blocks(dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            for grp in leaf_table(shapes, busy_blocks):
+            for grp in leaf_table(shapes, busy_blocks, split):
                 ptrs = np.array([[0 if t is None else t.data_ptr()
                                   for t in leaves[i]] for i in grp.leaves],
                                 dtype=np.int64)
@@ -276,6 +314,8 @@ class FusedAdamKernel:
                 for pass_, blocks in ((1, grp.blocks), (2, grp.blocks2)):
                     if blocks == 0:
                         continue
+                    if pass_ == 2 and row_group is not None:
+                        scratch.copy_(row_group.all_reduce(scratch, "max"))
                     # 1 - b is rounded to float32 from the double, like a
                     # Python scalar in a float32 product in either framework.
                     err = lib.mmn_fused_adam_multi(
@@ -351,7 +391,7 @@ def _check_leaves(leaves, shapes, fmt):
 
 
 def multi_leaf_update(leaves: Sequence, *, lr, b1, b2, eps,
-                      fmt: str = "fp8"):
+                      fmt: str = "fp8", split=None, row_group=None):
     """8-bit Adam update of every leaf in ``leaves``, in place on each
     ``p, mq, ms, vq, vs``; an entry is ``(p, g, mq, ms, vq, vs, c12,
     gate)``.
@@ -360,16 +400,25 @@ def multi_leaf_update(leaves: Sequence, *, lr, b1, b2, eps,
     device and ``gate`` None or a 0-D float32 tensor (1 runs the step, 0
     freezes the moments and the parameter), both per leaf. On the CPU this
     is the plain version; on a CUDA device it is the kernel, one launch per
-    ``MAX_LEAVES`` leaves (two where a row is wider than ``FIT_COLS``)."""
+    ``MAX_LEAVES`` leaves (two where a row is wider than ``FIT_COLS``).
+    ``split`` (one flag per leaf) and ``row_group`` give the cross-rank form
+    (module docstring)."""
     leaves = [tuple(leaf) for leaf in leaves]
     if not leaves:
         return
+    if split is not None:
+        split = tuple(bool(c) for c in split)
+        if not any(split):
+            split = None
+        elif row_group is None:
+            raise ValueError("split leaves need the row_group their rows "
+                             "are split across")
     device = leaves[0][0].device
     if device.type == "cpu":
         for leaf in leaves:
             _check_leaf(*leaf, fmt)
         new = multi_leaf_update_ref(leaves, lr=lr, b1=b1, b2=b2, eps=eps,
-                                    fmt=fmt)
+                                    fmt=fmt, split=split, row_group=row_group)
         for leaf, out in zip(leaves, new):
             for dst, src in zip((leaf[0],) + leaf[2:6], out):
                 dst.copy_(src)
@@ -378,7 +427,9 @@ def multi_leaf_update(leaves: Sequence, *, lr, b1, b2, eps,
         raise ValueError(f"leaf_update runs on cpu or cuda, not {device}")
     shapes = tuple(tuple(leaf[0].shape) for leaf in leaves)
     _check_leaves(leaves, shapes, fmt)
-    FUSED_ADAM.launch(leaves, shapes, lr=lr, b1=b1, b2=b2, eps=eps, fmt=fmt)
+    FUSED_ADAM.launch(leaves, shapes, lr=lr, b1=b1, b2=b2, eps=eps, fmt=fmt,
+                      split=split,
+                      row_group=None if split is None else row_group)
 
 
 def leaf_update(p, g, mq, ms, vq, vs, c12, *, lr, b1, b2, eps,

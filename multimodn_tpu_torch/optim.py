@@ -200,21 +200,30 @@ class Adam8bit(Optimizer):
         return upd, {"mq": mq, "ms": ms, "vq": vq, "vs": vs, "t": t,
                      "t_enc": t_enc}
 
-    def fused_apply(self, grads, state, params, enc_gates=None):
+    def fused_apply(self, grads, state, params, enc_gates=None,
+                    cross_rank=None):
         """Update ``params`` and the moment codes and scales in place;
         returns the state with the new step counts. Every leaf goes into
         one ``fused_adam.multi_leaf_update`` call: one kernel launch for the
-        whole step on a CUDA model."""
-        leaves = []
+        whole step on a CUDA model. ``cross_rank``: on a mesh's model axis,
+        ``(sharded-leaf flags tree, model axis)``; a sharded leaf's rows are
+        requantized by the whole row's absmax, a MAX across the axis (the
+        kernel's cross-rank form, two launches)."""
+        leaves, split = [], []
+        flags = None if cross_rank is None else cross_rank[0]
 
-        def op(c12, gate, p, g, mq, ms, vq, vs):
+        def op(c12, gate, p, g, mq, ms, vq, vs, *cut):
             leaves.append((p, g.contiguous(), mq, ms, vq, vs, c12, gate))
+            split.append(bool(cut and cut[0]))
             return ()
 
+        trees = [params, grads] + self._trees(state)
         _, t, t_enc = _drive(self.b1, self.b2, state, enc_gates, op,
-                             [params, grads] + self._trees(state), 0)
-        fa.multi_leaf_update(leaves, lr=self.lr, b1=self.b1, b2=self.b2,
-                             eps=self.eps, fmt=self.fmt)
+                             trees if flags is None else trees + [flags], 0)
+        fa.multi_leaf_update(
+            leaves, lr=self.lr, b1=self.b1, b2=self.b2, eps=self.eps,
+            fmt=self.fmt, split=split if cross_rank else None,
+            row_group=None if cross_rank is None else cross_rank[1])
         return dict(state, t=t, t_enc=t_enc)
 
 

@@ -47,10 +47,11 @@ class InferenceSession:
         at cycle phase 0: each session is its own stream and leaves the
         model's cycle counter alone."""
         return self.model.init_state.apply(
-            self.model.params["init_state"], batch_size, 0)
+            self.model._whole_params()["init_state"], batch_size, 0)
 
     def _decode(self, state) -> List[np.ndarray]:
-        return [dec.apply(self.model.params["decoders"][d], state)
+        params = self.model._whole_params()
+        return [dec.apply(params["decoders"][d], state)
                 .cpu().numpy() for d, dec in enumerate(self.model.decoders)]
 
     @torch.no_grad()
@@ -68,7 +69,7 @@ class InferenceSession:
         mode = self.model.nan_skip if nan_skip is None \
             else ("sample" if nan_skip else "none")
         x = self.model._to_device([x])[0]
-        params = self.model.params["encoders"][encoder_idx]
+        params = self.model._whole_params()["encoders"][encoder_idx]
         new_state = self.model.encoders[encoder_idx].apply(
             params, state, torch.nan_to_num(x))
         if mode == "sample":

@@ -32,7 +32,7 @@ def _describe_tree(tree, indent: str = "    ") -> str:
 
 def summarize_model(model) -> str:
     """Human-readable per-module parameter table for a MultiModN model."""
-    params = model.params
+    params = model._whole_params()
     n = _count_params(params["init_state"])
     total = n
     out = [f"InitState ({type(model.init_state).__name__}): {n} params"]

@@ -1050,3 +1050,113 @@ def test_resnet_model_step_on_cuda_matches_cpu(cuda):
     diffs = np.concatenate([np.abs(a - b).reshape(-1) for a, b in zip(
         tree_leaves(gpu.state_dict()), tree_leaves(cpu.state_dict()))])
     assert diffs.max() <= 2 * LR + 1e-6
+
+
+# ---------------------------------------------------------------------------
+# Two ranks on the card over gloo (NCCL refuses two ranks on one device),
+# started by parallel.dryrun.spawn; the rank functions live at module level
+# so the ranks can import them.
+# ---------------------------------------------------------------------------
+
+def _cross_rank_rank(rank, world):
+    """K2's cross-rank form on this rank's column piece of every sharded
+    MIMIC leaf and of (4096, 1024), against the plain update of the whole
+    leaf, sliced: mismatching elements and launches."""
+    from multimodn_tpu_torch.parallel import make_mesh
+    device = torch.device("cuda", 0)
+    axis = make_mesh((1, world), ("data", "model"), device=device).axis(
+        "model")
+    gen = torch.Generator(device=device).manual_seed(5)
+    shapes = [tuple(t.shape) for t in tree_leaves(_model("mimic",
+                                                         device).params)]
+    shapes = [s for s in shapes if s[-1] % world == 0] + [(4096, 1024)]
+    whole = []
+    for s in shapes:
+        p = torch.randn(s, generator=gen, device=device)
+        g = torch.randn(s, generator=gen, device=device) * 1e-2
+        mq, ms = fa.quantize_rows(torch.randn(s, generator=gen,
+                                              device=device) * 1e-2)
+        vq, vs = fa.quantize_rows(torch.rand(s, generator=gen,
+                                             device=device) * 1e-4)
+        whole.append((p, g, mq, ms, vq, vs,
+                      torch.tensor([0.1, 0.01], device=device), None))
+    kw = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, fmt="fp8")
+    want = fa.multi_leaf_update_ref(whole, **kw)
+
+    def cut(t):
+        k = t.shape[-1] // world
+        return t[..., rank * k:(rank + 1) * k].contiguous()
+
+    pieces = [(cut(w[0]), cut(w[1]), cut(w[2]), w[3].clone(), cut(w[4]),
+               w[5].clone(), w[6], None) for w in whole]
+    before = fa.FUSED_ADAM.launches
+    fa.multi_leaf_update(pieces, split=[True] * len(pieces), row_group=axis,
+                         **kw)
+    torch.cuda.synchronize()
+    def bits(t):
+        return t.view(torch.uint8) if t.element_size() == 1 else \
+            t.view(torch.int32)
+
+    bad = 0
+    for piece, w in zip(pieces, want):
+        for a, b in ((piece[0], cut(w[0])), (piece[2], cut(w[1])),
+                     (piece[3], w[2]), (piece[4], cut(w[3])),
+                     (piece[5], w[4])):
+            bad += int((bits(a) != bits(b)).sum())
+    return bad, fa.FUSED_ADAM.launches - before, fa.launches_per_update(
+        [tuple(p[0].shape) for p in pieces], [True] * len(pieces))
+
+
+@pytest.mark.cuda
+def test_fused_adam_cross_rank_form_matches_plain_on_two_ranks(cuda):
+    """Two ranks on the card: each updates its column piece of the sharded
+    MIMIC leaves and of (4096, 1024) through the kernel's cross-rank form
+    (rows split across the ranks, the absmax a MAX over them), bit-equal
+    to the plain update of the whole leaf, sliced."""
+    from multimodn_tpu_torch.parallel.dryrun import spawn
+    for bad, launches, want in spawn(_cross_rank_rank, 2, "gloo", "cuda:0"):
+        assert bad == 0
+        assert launches == want == 2
+
+
+def _dp_step_rank(rank, world, shape):
+    """One training epoch of 2 batches of 16 with ``Adam`` on the MIMIC
+    model (dropout 0.2) on a data mesh of ``shape`` (None: mesh-free) on the
+    card; returns the loss grids and the whole parameters."""
+    from multimodn_tpu_torch import MultiModNHistory
+    from multimodn_tpu_torch.parallel import make_mesh
+    mesh = None if shape is None else make_mesh(shape, ("data",),
+                                                device="cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(32, 1901)).astype(np.float32)
+    X[rng.random(32) < 0.3, 10:1034] = np.nan
+    y = (np.nan_to_num(X[:, :8]).sum(1, keepdims=True) > 0).astype(np.int64)
+    y = np.concatenate([y, 1 - y], axis=1)
+    encs = [tenc.MIMICMLPEncoder(50, w, (32, 32)) for w in (10, 1024, 768,
+                                                           99)]
+    decs = [tdec.MLPDecoder(50, (32, 32), 2) for _ in range(2)]
+    model = MultiModN(50, encs, decs, 1.0, 0.0,
+                      device="cuda:0" if mesh is None else None, mesh=mesh)
+    h = MultiModNHistory(["a", "b"])
+    model.train_epoch(ArrayLoader(PartitionDataset(
+        X, y, [10, 1024, 768, 99]), 16), Adam(1e-3), "cross_entropy", h)
+    return np.asarray(h.loss["train"][0]), model.state_dict()
+
+
+@pytest.mark.cuda
+def test_two_rank_data_parallel_step_matches_one_rank(cuda):
+    """A 2-rank data-parallel epoch on the card (each rank 8 rows of every
+    batch, dropout drawn at the global batch shape) against the mesh-free
+    epoch: loss grids within rtol 1e-5 (the gradient sums of two ranks in
+    another order), parameters within 2 lr (Adam's first steps move a
+    parameter by ~lr times the sign of its gradient, which a near-zero
+    gradient may round to either side); the ranks' replicas bit-equal."""
+    from multimodn_tpu_torch.parallel.dryrun import spawn
+    one = spawn(_dp_step_rank, 1, "gloo", "cuda:0", None)[0]
+    two = spawn(_dp_step_rank, 2, "gloo", "cuda:0", (2,))
+    np.testing.assert_allclose(two[0][0], one[0], rtol=1e-5, atol=0)
+    for a, b in zip(tree_leaves(two[0][1]), tree_leaves(one[1])):
+        np.testing.assert_allclose(a, b, rtol=0, atol=2e-3)
+    for a, b in zip(tree_leaves(two[0][1]), tree_leaves(two[1][1])):
+        np.testing.assert_array_equal(a, b)

@@ -357,6 +357,8 @@ def test_streamed_guards_match_jax(case):
 
 
 def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 20"):
+    """A seed mesh is ported (``test_torch_parallel.py`` runs it over ranks);
+    one without the sweep axis raises JAX's ``ValueError``."""
+    with pytest.raises(ValueError, match="mesh has no 'fold' axis"):
         texp.sweep_fit_best(_tfactory, *_pair("torch"), tmm.Adam(0.01),
                             mesh=object())

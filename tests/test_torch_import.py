@@ -59,6 +59,9 @@ def test_cpu_training_needs_neither_jax_nor_pandas():
         from multimodn_tpu_torch import encoders, decoders
         from multimodn_tpu_torch.data import ArrayLoader, PartitionDataset
         from multimodn_tpu_torch.ops import fused_adam
+        import multimodn_tpu_torch.parallel
+        from multimodn_tpu_torch.parallel import make_mesh, batch_sharding, \
+            replicate, shard_params, shard_opt_state
         rng = np.random.default_rng(0)
         X = rng.normal(size=(40, 7)).astype(np.float32)
         X[::5, :3] = np.nan
@@ -80,6 +83,7 @@ def test_cpu_training_needs_neither_jax_nor_pandas():
                         or k.startswith("multimodn_tpu."))
         assert not leaked, leaked
         assert sys.modules["jax"] is None and sys.modules["pandas"] is None
+        assert "sklearn" not in sys.modules
         print("ok")
     """)
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
@@ -333,11 +337,10 @@ def _jax_all(subpackage: str) -> list:
 
 
 @pytest.mark.parametrize("subpackage", ["", "encoders", "decoders", "data",
-                                        "baselines"])
+                                        "baselines", "parallel"])
 def test_every_jax_export_imports_from_the_port(subpackage):
     """Each name of the JAX package's ``__all__`` imports from the port's
-    module of the same name. ``parallel`` (ROADMAP.md Queue A item 20, the
-    multi-GPU slice) is not ported yet and is left out as a whole."""
+    module of the same name."""
     module = importlib.import_module(
         "multimodn_tpu_torch" + ("." + subpackage if subpackage else ""))
     missing = [n for n in _jax_all(subpackage) if not hasattr(module, n)]

@@ -2,7 +2,7 @@
 ``kfold_fit_best`` (unequal fold batch counts, ``patience``) and the state
 it leaves each fold's model in, the three pipeline ``main``s against the
 JAX scripts' results CSVs, ``append_result_row`` against pandas, the
-checkpoint files of both packages, and the options not ported yet.
+checkpoint files of both packages, and the fold-mesh guard.
 
 Weights are transplanted from the JAX package (``load_state_dict``) and
 dropout is 0 wherever trajectories are compared: JAX threefry and torch
@@ -156,9 +156,11 @@ def test_kfold_unported_arguments_raise():
     _, tfactory = _factories()
     _, tfolds = _fold_loaders([(20, 10), (20, 10)])
     opt = tmm.Adam(1e-2)
-    with pytest.raises(NotImplementedError, match="item 20"):
+    # Fold and seed meshes are ported (test_torch_parallel.py); a mesh
+    # without the fold axis raises the JAX package's ValueError.
+    with pytest.raises(ValueError, match="mesh has no 'fold' axis"):
         tkfold(tfactory, tfolds, opt, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 20"):
+    with pytest.raises(ValueError, match="mesh has no 'fold' axis"):
         tsweep(tfactory, *tfolds[0], opt, mesh=object())
     with pytest.raises(ValueError, match="patience"):
         tkfold(tfactory, tfolds, opt, patience=0)
