@@ -15,7 +15,7 @@ The first form is the smoke run; the second times phase 8 alone at another
 data size and depth, the third with every fold's batches streamed; the
 fourth runs the MNAR protocol grid alone, the fifth phase 13 alone, the
 sixth phase 14 alone, the seventh phase 15 alone, the eighth phase 16
-alone, the ninth phase 17 alone.
+alone, the ninth phases 17 and 18 alone.
 Phases, each fatal on failure:
 
 1. the card's name and power limit, torch and CUDA versions; TF32 off;
@@ -222,16 +222,39 @@ Phases, each fatal on failure:
    one rank (elastic) with losses within rtol 1e-2; the same elastic
    resume with fp32 ``Adam`` within rtol 1e-5 in every epoch's losses and
    in its parameters (atol 1e-6);
-18. the earlier designs' times from PERF.md on a line of their own, the
+18. every encoder on a mesh, two ranks on the card over ``gloo`` against
+   the same model on one rank (``fit_best``, 2 epochs, each run's K2
+   launches, steps/s and collective ms per step from
+   ``utils.profiling.trace``): the MIMIC transformer pipeline's model
+   (phase 11's, 1,656,140 parameters; 128 + 32 seeded rows, batch 16) on
+   ``('data', 'model') = (1, 2)`` and on ``data`` = 2 with fp32 ``Adam``,
+   and on (1, 2) with ``Adam8bit`` (K2's cross-rank form, 2 launches per
+   step); phase 16's ResNet-18 image model (224 x 224 x 3, 64 + 32 rows,
+   batch 32, the NaN images in the second rank's rows only) on ``data`` = 2
+   (global BatchNorm moments) and on (1, 2) with fp32 ``Adam``, and on (1,
+   2) with ``Adam8bit``; the Titanic LSTM pipeline's model (unbatched
+   recurrence over the global batch) on ``data`` = 2 with ``Adam``. Replicas
+   bit-equal; fp32 ``Adam`` losses within rtol 1e-5 of one rank's in every
+   epoch and each parameter leaf within rtol 1e-5 of its largest magnitude
+   (atol 1e-6), or, for the transformer and image models, within 4x the
+   distance that reversing each batch's rows puts between two one-rank
+   runs in this run (``ENC_FLOOR_FACTOR``); ``Adam8bit`` losses within rtol
+   1e-5 in the first epoch and 1e-2 after; K2 launches per step as the
+   leaf table says; and K2's cross-rank form on one optimizer step of
+   each model's leaves (split pieces beside whole leaves, the ResNet's 4-D
+   kernels among them) bit-equal to the plain update of the whole leaves,
+   sliced, timed with and without its gloo MAX against its bound;
+19. the earlier designs' times from PERF.md on a line of their own, the
    ``mnar``, ``transformer``, ``resume``, ``orders``, ``dropin``,
-   ``experiments``, ``precision`` and ``parallel`` lines, one
-   ``{"kernels": [...]}`` line of this run's numbers (launches summed over
-   every path that ran the kernel, by phase in ``launches_by_phase``; K1's
-   with ``titanic``, ``mnar``, ``resumed``, ``orders``, ``dropin``,
-   ``experiments``, ``precision`` and ``parallel`` blocks, K2's with
-   ``resume``, ``orders``, ``experiments``, ``precision`` and ``parallel``
-   blocks), the script's wall time, the card's line, and last the
-   ``{"ok": true, ...}`` line.
+   ``experiments``, ``precision``, ``parallel`` and ``parallel_encoders``
+   lines, one ``{"kernels": [...]}`` line of this run's numbers (launches
+   summed over every path that ran the kernel, by phase in
+   ``launches_by_phase``; K1's with ``titanic``, ``mnar``, ``resumed``,
+   ``orders``, ``dropin``, ``experiments``, ``precision`` and ``parallel``
+   blocks, K2's with ``resume``, ``orders``, ``experiments``,
+   ``precision``, ``parallel`` and ``parallel_encoders`` blocks), the
+   script's wall time, the card's line, and last the ``{"ok": true, ...}``
+   line.
 
 ``--mnar-only`` runs phase 1 and the MNAR protocol grid alone at the
 published cohort scale (300 patients, 5 folds) for ``batch``, ``sample``
@@ -3838,6 +3861,418 @@ def run_parallel(device, rank_device_name="cuda:0"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: every encoder on a mesh. The transformer pipeline's model, phase
+# 16's ResNet-18 image model and the Titanic LSTM pipeline's model train on
+# two ranks sharing the card over gloo, each run held against the same model
+# on one rank. Depth is cut (rows, epochs); the widths are the models' own.
+# ---------------------------------------------------------------------------
+ENC_ROWS, ENC_VAL, ENC_EPOCHS = 128, 32, 2
+ENC_IMAGE_ROWS, ENC_IMAGE_VAL, ENC_IMAGE_BATCH = 64, 32, 32
+ENC_TRACE_STEPS = 4
+# Rows of each image batch whose image is NaN: the second rank's block of a
+# 2-way data axis only.
+ENC_IMAGE_NAN = range(20, 24)
+# (label, model, mesh shape, mesh axes, optimizer).
+ENC_RUNS = (
+    ("transformer_model2_adam", "transformer", (1, 2), ("data", "model"),
+     "adam"),
+    ("transformer_data2_adam", "transformer", (2,), ("data",), "adam"),
+    ("transformer_model2_adam8bit", "transformer", (1, 2),
+     ("data", "model"), "adam8bit"),
+    ("image_data2_adam", "image", (2,), ("data",), "adam"),
+    ("image_model2_adam", "image", (1, 2), ("data", "model"), "adam"),
+    ("image_model2_adam8bit", "image", (1, 2), ("data", "model"),
+     "adam8bit"),
+    ("lstm_data2_adam", "lstm", (2,), ("data",), "adam"))
+# fp32 Adam runs are held at the mesh tolerance (losses rtol 1e-5 in every
+# epoch; each parameter leaf within rtol 1e-5 of its largest magnitude plus
+# atol 1e-6), or, leaf by leaf and epoch by epoch, within ENC_FLOOR_FACTOR
+# times the distance that reordering each batch's rows (an exact symmetry)
+# puts between two one-rank runs, measured in this run: Adam's step is
+# scale-free, so a gradient element near its rounding (an attention
+# block's key bias, whose true gradient is 0; many of a ResNet's, under
+# train-mode BatchNorm) steps by up to lr in a direction that any change of
+# summation order can flip, and a mesh changes the summation order as the
+# reordering does. The parameter tolerance is the leaf's, not each
+# element's, for the same reason at a smaller scale: a small element with
+# a small gradient moves by lr times its gradient's relative rounding per
+# step. The unbatched LSTM's recurrence runs in row order, so it has no
+# such floor and is held at the mesh tolerance alone.
+ENC_FLOOR_FACTOR = 4.0
+ENC_FLOOR_KINDS = ("transformer", "image")
+
+
+class EncImageRows:
+    """Seeded 224 x 224 x 3 NHWC images (NaN in rows ``ENC_IMAGE_NAN`` of
+    every batch, the second rank's) and the MIMIC 1024-wide source, two
+    labels."""
+
+    def __init__(self, n, seed):
+        rng = np.random.default_rng(seed)
+        self.img = rng.normal(size=(n, IMAGE_SIZE, IMAGE_SIZE, 3)) \
+            .astype(np.float32)
+        for b in range(0, n, ENC_IMAGE_BATCH):
+            self.img[[b + i for i in ENC_IMAGE_NAN if b + i < n]] = np.nan
+        self.x = rng.normal(size=(n, IMAGE_FEATURES)).astype(np.float32)
+        self.y = np.stack([self.x[:, :4].sum(1) > 0, self.x[:, 4:8].sum(1)
+                           > 0], 1).astype(np.int64)
+
+    def __len__(self):
+        return len(self.y)
+
+    def arrays(self):
+        return [self.img, self.x], self.y, None
+
+
+def enc_model(kind, device):
+    """The mesh-free model of ``kind`` (seed 0) on ``device``."""
+    if kind == "transformer":
+        return transformer_model(device)
+    if kind == "image":
+        return image_model(device)
+    from multimodn_tpu_torch.pipelines.titanic import common
+    return common.build_model(titanic_pipeline("titanic_lstm").CONFIG, 0,
+                              device)
+
+
+def on_mesh(model, mesh):
+    """``model``'s modules, penalties and weights on ``mesh``."""
+    out = MultiModN(model.state_size, model.encoders, model.decoders,
+                    model.err_penalty, 0.0, nan_skip=model.nan_skip,
+                    seed=model._seed, presence_dropout=model.presence_dropout,
+                    presence_penalty=model.presence_penalty, mesh=mesh)
+    out.state_change_penalty = model.state_change_penalty
+    out.load_state_dict(model.state_dict())
+    return out
+
+
+def reordered(n, batch, reorder):
+    """Row indices ``0 .. n``, each batch's rows reversed when
+    ``reorder``."""
+    rows = np.arange(n)
+    if reorder:
+        for b in range(0, n, batch):
+            rows[b:b + batch] = rows[b:b + batch][::-1]
+    return rows.tolist()
+
+
+def enc_loaders(kind, reorder=False, batches=None):
+    """The train and validation loaders of ``kind``'s run; ``reorder``
+    reverses the rows of each training batch (``ENC_FLOOR_FACTOR``);
+    ``batches`` keeps the first training batches only."""
+    if kind == "transformer":
+        data = random_dataset(MIMIC_WIDTHS, ENC_ROWS + ENC_VAL, seed=18)
+        train, val, batch = data, Subset(data, range(
+            ENC_ROWS, ENC_ROWS + ENC_VAL)), TRAIN_BATCH
+        rows = reordered(ENC_ROWS, batch, reorder)
+    elif kind == "image":
+        train, val = EncImageRows(ENC_IMAGE_ROWS, 18), EncImageRows(
+            ENC_IMAGE_VAL, 19)
+        batch = ENC_IMAGE_BATCH
+        rows = reordered(ENC_IMAGE_ROWS, batch, reorder)
+    else:
+        from multimodn_tpu_torch.pipelines.titanic import common
+        cfg = titanic_pipeline("titanic_lstm").CONFIG
+        split, val, _ = common.split(cfg, 0)
+        train, rows, batch = split.dataset, list(split.indices), \
+            cfg.batch_size
+    if batches is not None:
+        rows = rows[:batches * batch]
+    return (ArrayLoader(Subset(train, rows), batch),
+            ArrayLoader(val, batch))
+
+
+def enc_optimizer(kind, name):
+    lr = titanic_pipeline("titanic_lstm").CONFIG.learning_rate \
+        if kind == "lstm" else ADAM_LR
+    return (Adam if name == "adam" else Adam8bit)(lr)
+
+
+def enc_fit(kind, model, opt, reorder=False):
+    """``fit_best`` of ``model`` for ``ENC_EPOCHS`` on ``kind``'s data; K2's
+    launches counted over the call."""
+    train, val = enc_loaders(kind, reorder)
+    history = MultiModNHistory([f"t{d}" for d in range(
+        len(model.decoders))])
+    optimizer = enc_optimizer(kind, opt)
+    torch.cuda.synchronize(model.device)
+    FUSED_ADAM.launches = FUSED_CHAIN.launches = 0
+    t0 = time.perf_counter()
+    best = model.fit_best(train, optimizer, "cross_entropy",
+                          epochs=ENC_EPOCHS, val_loader=val, history=history)
+    torch.cuda.synchronize(model.device)
+    seconds = time.perf_counter() - t0
+    steps = best["epochs_ran"] * train.n_batches
+    if FUSED_CHAIN.launches:
+        raise AssertionError(f"phase 18 {kind}: K1 launched in training")
+    return {"train_grids": [np.asarray(g) for g in history.loss["train"]],
+            "val_grids": [np.asarray(g) for g in history.loss["val"]],
+            "losses": [float(np.mean(g)) for g in history.loss["train"]],
+            "scores": [float(x) for x in best["scores"]],
+            "k2_launches": FUSED_ADAM.launches, "steps": steps,
+            "lr": optimizer.lr, "seconds": seconds,
+            "steps_per_s": steps / seconds}, optimizer
+
+
+def enc_collective_ms(model, kind, optimizer, work, label):
+    """``ENC_TRACE_STEPS`` more training steps under
+    ``utils.profiling.trace``: the CPU time of their ``collective`` regions
+    per step (each waits for its transfer) and the traced step's wall
+    time."""
+    from multimodn_tpu_torch.utils import profiling
+    train, _ = enc_loaders(kind, batches=ENC_TRACE_STEPS)
+    torch.cuda.synchronize(model.device)
+    with profiling.trace(os.path.join(work, label)) as prof:
+        t0 = time.perf_counter()
+        model.train_epoch(train, optimizer)
+        torch.cuda.synchronize(model.device)
+        wall = time.perf_counter() - t0
+    coll = sum(e.cpu_time_total for e in prof.key_averages()
+               if e.key == "collective")
+    return {"collective_ms_per_step": coll / 1e3 / train.n_batches,
+            "traced_step_ms": 1e3 * wall / train.n_batches}
+
+
+def cross_rank_step(axis, device, shapes, split, label, timed):
+    """K2's cross-rank form on one optimizer step of a model's leaves in one
+    ``multi_leaf_update`` call: the split leaves as this rank's columns,
+    the others whole beside them, against the plain update of the whole
+    leaves, sliced. Returns mismatching elements, launches, and (``timed``)
+    the call's time with its gloo MAX, its two passes alone, the plain
+    version's time and the bound."""
+    b1, b2 = ADAM_BETAS
+    gen = torch.Generator(device=device).manual_seed(31)
+    whole = [adam_leaf(s, "fp8", gen, device) + [None] for s in shapes]
+    want = fa.multi_leaf_update_ref(whole, lr=ADAM_LR, b1=b1, b2=b2,
+                                    eps=ADAM_EPS, fmt="fp8")
+
+    def cut(t):
+        k = t.shape[-1] // axis.size
+        return t[..., axis.index * k:(axis.index + 1) * k].contiguous()
+
+    pieces = [[cut(w[0]), cut(w[1]), cut(w[2]), w[3].clone(), cut(w[4]),
+               w[5].clone(), w[6], None] if c else
+              [w[0].clone(), w[1]] + [t.clone() for t in w[2:6]] + [w[6],
+                                                                   None]
+              for w, c in zip(whole, split)]
+    before = FUSED_ADAM.launches
+    fa.multi_leaf_update(pieces, lr=ADAM_LR, b1=b1, b2=b2, eps=ADAM_EPS,
+                         fmt="fp8", split=split, row_group=axis)
+    torch.cuda.synchronize(device)
+    launches = FUSED_ADAM.launches - before
+    local = [tuple(p[0].shape) for p in pieces]
+    expect_launches(f"K2 cross-rank {label}", launches,
+                    fa.launches_per_update(local, split))
+    bad = 0
+    for p, w, c in zip(pieces, want, split):
+        take = cut if c else (lambda t: t)
+        for a, b in ((p[0], take(w[0])), (p[2], take(w[1])), (p[3], w[2]),
+                     (p[4], take(w[3])), (p[5], w[4])):
+            differ = _bits(a) != _bits(b)
+            if a.element_size() != 1:
+                differ &= ~(a.isnan() & b.isnan())
+            bad += int(differ.sum())
+    if bad:
+        raise AssertionError(f"K2 cross-rank form, {label}: {bad} elements "
+                             f"differ from the plain version")
+    r = {"leaves": len(local), "split_leaves": int(sum(split)),
+         "parameters": int(sum(np.prod(s) for s in local)),
+         "mismatches": bad, "launches": launches}
+    if timed:
+        leaves = [tuple(p) for p in pieces]
+        kw = dict(lr=ADAM_LR, b1=b1, b2=b2, eps=ADAM_EPS, fmt="fp8")
+        r["ms"] = time_ms(lambda: FUSED_ADAM.launch(
+            leaves, tuple(local), split=tuple(split), row_group=axis, **kw))
+        r["passes_ms"] = time_ms(lambda: FUSED_ADAM.launch(
+            leaves, tuple(local), split=tuple(split), **kw))
+        r["bound_ms"], r["bound_by"], r["bytes"] = adam_bound(local)
+        r["plain_ms"] = time_ms(lambda: fa.multi_leaf_update_ref(
+            leaves, split=split, row_group=axis, **kw), reps=2, groups=3)
+    return r
+
+
+def tree_digest(*trees) -> str:
+    """A digest of the bytes of every tensor or array leaf of ``trees``
+    (replica checks without moving the leaves between processes)."""
+    import hashlib
+    h = hashlib.sha256()
+    for tree in trees:
+        for t in tree_leaves(tree):
+            if torch.is_tensor(t):
+                t = t.detach().cpu().reshape(-1).contiguous().view(
+                    torch.uint8).numpy()
+            if isinstance(t, np.ndarray):
+                h.update(np.ascontiguousarray(t).view(np.uint8).tobytes())
+    return h.hexdigest()
+
+
+def encoder_rank(rank, world, work):
+    """Phase 18's two-rank runs on one of two ranks sharing the card."""
+    from multimodn_tpu_torch.parallel import make_mesh
+    from multimodn_tpu_torch.parallel.dryrun import rank_device
+    from multimodn_tpu_torch.parallel.sharding import leaf_spec
+    device = torch.device(rank_device())
+    exact_math()
+    out = {"runs": {}, "k2_cross_rank": {}}
+    for label, kind, shape, axes, opt in ENC_RUNS:
+        mesh = make_mesh(shape, axes, device=device)
+        model = on_mesh(enc_model(kind, device), mesh)
+        r, optimizer = enc_fit(kind, model, opt)
+        split = tree_leaves(model._dp.split)
+        r["k2_launches_per_step"] = r["k2_launches"] / r["steps"]
+        r["k2_expected_per_step"] = 0 if opt == "adam" else \
+            fa.launches_per_update(
+                [tuple(t.shape) for t in tree_leaves(model.params)],
+                split if any(split) else None)
+        r["local_digest"] = tree_digest(model.params, model.opt_state)
+        whole = model.state_dict()
+        r["state_digest"] = tree_digest(whole)
+        r["state"] = whole if rank == 0 else None
+        r.update(enc_collective_ms(model, kind, optimizer, work,
+                                   f"{label}_{rank}"))
+        out["runs"][label] = r
+    tp = make_mesh((1, 2), ("data", "model"), device=device)
+    for kind in ("transformer", "image", "lstm"):
+        shapes = [tuple(t.shape) for t in tree_leaves(
+            enc_model(kind, device).params)]
+        split = [leaf_spec(s, tp).split_dim() is not None for s in shapes]
+        out["k2_cross_rank"][kind] = cross_rank_step(
+            tp.axis("model"), device, shapes, split, kind,
+            timed=kind != "lstm")
+    return out
+
+
+def spread_check(got, want, floor, what, leafwise):
+    """``got`` against ``want`` (lists of arrays): each pair within the
+    mesh tolerance, or within ``ENC_FLOOR_FACTOR`` times ``floor``'s
+    distance from ``want`` (None: no floor). ``leafwise`` (parameters):
+    rtol 1e-5 of the leaf's largest magnitude plus atol 1e-6; else (loss
+    grids) rtol 1e-5 of each element. Returns the largest distance, the
+    largest ratio to a floor that was needed, and the failures."""
+    worst, ratio, failures = 0.0, 0.0, []
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = np.asarray(g), np.asarray(w)
+        if not g.size:
+            continue
+        d = float(np.max(np.abs(g - w)))
+        worst = max(worst, d)
+        if leafwise:
+            if d <= PAR_ATOL + PAR_RTOL * float(np.max(np.abs(w))):
+                continue
+        elif np.allclose(g, w, rtol=PAR_RTOL, atol=0.0):
+            continue
+        f = 0.0 if floor is None else float(np.max(np.abs(
+            np.asarray(floor[i]) - w)))
+        if d <= ENC_FLOOR_FACTOR * f:
+            ratio = max(ratio, d / f)
+            continue
+        failures.append(f"{what}, entry {i}: {d} apart (largest "
+                        f"{float(np.max(np.abs(w)))}), beyond the mesh "
+                        f"tolerance and {ENC_FLOOR_FACTOR} x the reordered "
+                        f"rows' {f}")
+    return worst, ratio, failures
+
+
+def run_parallel_encoders(device, rank_device_name="cuda:0"):
+    """Phase 18 (module docstring); returns its numbers. Every run's
+    numbers are printed before a failed check raises."""
+    from multimodn_tpu_torch.parallel.dryrun import spawn
+    t_phase = time.perf_counter()
+    one = {}
+    for kind, opt in (("transformer", "adam"), ("transformer", "adam8bit"),
+                      ("image", "adam"), ("image", "adam8bit"),
+                      ("lstm", "adam")):
+        model = enc_model(kind, device)
+        r, _ = enc_fit(kind, model, opt)
+        r["state"] = model.state_dict()
+        r["leaves"] = len(tree_leaves(model.params))
+        one[(kind, opt)] = r
+        if opt == "adam" and kind in ENC_FLOOR_KINDS:
+            model = enc_model(kind, device)
+            r, _ = enc_fit(kind, model, opt, reorder=True)
+            r["state"] = model.state_dict()
+            r["leaves"] = len(tree_leaves(model.params))
+            one[(kind, "floor")] = r
+    with tempfile.TemporaryDirectory(prefix="mmn_encoders_") as work:
+        t0 = time.perf_counter()
+        ranks = spawn(encoder_rank, 2, "gloo", rank_device_name, work,
+                      timeout=900)
+        spawn_s = time.perf_counter() - t0
+    out = {"one_rank": {f"{k}_{o}": {n: r[n] for n in (
+        "losses", "scores", "k2_launches", "steps", "steps_per_s",
+        "seconds", "leaves")} for (k, o), r in one.items()}}
+    failures = []
+    for label, kind, shape, axes, opt in ENC_RUNS:
+        rs = [r["runs"][label] for r in ranks]
+        ref = one[(kind, opt)]
+        fp32 = opt == "adam"
+        # A data axis replicates every piece; a model axis, the whole.
+        key = "local_digest" if shape == (2,) else "state_digest"
+        equal = rs[0][key] == rs[1][key]
+        if not equal:
+            failures.append(f"{label}: the ranks' replicas differ")
+        res = {k: rs[0][k] for k in (
+            "losses", "scores", "steps", "steps_per_s", "seconds",
+            "k2_launches_per_step", "collective_ms_per_step",
+            "traced_step_ms")}
+        res["k2_launches"] = sum(r["k2_launches"] for r in rs)
+        res["replicas_bit_equal"] = equal
+        res["one_rank_steps_per_s"] = ref["steps_per_s"]
+        res["rel_loss_diff_by_epoch"] = [
+            float(np.max(np.abs(g - w) / np.abs(w)))
+            for g, w in zip(rs[0]["train_grids"], ref["train_grids"])]
+        for r in rs:
+            if r["k2_launches"] != r["steps"] * r["k2_expected_per_step"]:
+                failures.append(f"{label}: K2 {r['k2_launches']} launches "
+                                f"for {r['steps']} steps of "
+                                f"{r['k2_expected_per_step']}")
+        if fp32:
+            floor = one.get((kind, "floor"))
+            grids = ("train_grids", "val_grids")
+            _, res["loss_floor_ratio"], bad = spread_check(
+                [g for k in grids for g in rs[0][k]],
+                [g for k in grids for g in ref[k]],
+                None if floor is None else [g for k in grids
+                                            for g in floor[k]],
+                f"{label} losses", leafwise=False)
+            failures += bad
+            res["max_abs_param_diff"], res["param_floor_ratio"], bad = \
+                spread_check(tree_leaves(rs[0]["state"]),
+                             tree_leaves(ref["state"]),
+                             None if floor is None else tree_leaves(
+                                 floor["state"]), f"{label} parameters",
+                             leafwise=True)
+            failures += bad
+            if floor is not None:
+                res["reordered_rows_max_abs_param_diff"] = max(
+                    float(np.max(np.abs(a - b))) for a, b in zip(
+                        tree_leaves(floor["state"]),
+                        tree_leaves(ref["state"])))
+        else:
+            for grids in ("train_grids", "val_grids"):
+                for e, (g, w) in enumerate(zip(rs[0][grids], ref[grids])):
+                    rtol = PAR_RTOL if e == 0 else PAR_RTOL_8BIT
+                    if not np.allclose(g, w, rtol=rtol, atol=0.0):
+                        failures.append(
+                            f"{label}: epoch {e}'s {grids} {g} against the "
+                            f"one-rank run's {w} (rtol {rtol})")
+        out[label] = res
+    out["k2_cross_rank"] = ranks[0]["k2_cross_rank"]
+    out["k2_launches"] = sum(r["k2_launches"] for r in one.values()) + sum(
+        out[label]["k2_launches"] for label, *_ in ENC_RUNS)
+    out["spawn_s"] = spawn_s
+    out["wall_s"] = time.perf_counter() - t_phase
+    for label, *_ in ENC_RUNS:
+        log(f"  {label}: {json.dumps(out[label])}")
+    log(f"  K2 cross-rank: {json.dumps(out['k2_cross_rank'])}")
+    log(f"  phase 18 wall {out['wall_s']:.1f} s (two-rank world "
+        f"{spawn_s:.1f} s)  [{card_line()}]")
+    if failures:
+        raise AssertionError("phase 18: " + "; ".join(failures))
+    return out
+
+
 def build_kernels():
     """Build every kernel library at once (one nvcc per source)."""
     with ThreadPoolExecutor(max_workers=2) as pool:
@@ -3888,9 +4323,10 @@ def parse_args(argv=None):
                         "ResNet image model) only and end with the "
                         "precision line (no ok line)")
     p.add_argument("--parallel-only", action="store_true",
-                   help="run phases 1, 2 and 17 (multi-GPU parity: one "
-                        "rank over NCCL, two ranks on the card over gloo) "
-                        "only and end with the parallel line (no ok line)")
+                   help="run phases 1, 2, 17 and 18 (multi-GPU parity: one "
+                        "rank over NCCL, two ranks on the card over gloo; "
+                        "every encoder on a mesh) only and end with the "
+                        "parallel_encoders line (no ok line)")
     p.add_argument("--resume-child", nargs=2, metavar=("KIND", "DIR"),
                    help=argparse.SUPPRESS)
     return p.parse_args(argv)
@@ -3967,6 +4403,9 @@ def main(argv=None) -> int:
     if args.parallel_only:
         log("== phase 17: multi-GPU parity")
         log("parallel: " + json.dumps(run_parallel(device)))
+        log("== phase 18: every encoder on a mesh")
+        log("parallel_encoders: " + json.dumps(run_parallel_encoders(
+            device)))
         log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
         log(card)
         return 0
@@ -4039,6 +4478,10 @@ def main(argv=None) -> int:
     log("== phase 17: multi-GPU parity")
     log(card_line())
     parallel = run_parallel(device)
+
+    log("== phase 18: every encoder on a mesh")
+    log(card_line())
+    encoders = run_parallel_encoders(device)
     k1_by_phase = {
         "4": launches,
         "9": sum(r["launches"] for r in titanic["served"].values()),
@@ -4059,7 +4502,8 @@ def main(argv=None) -> int:
                   for k in ("sweep", "kfold", "trace")),
         "16": precision["mimic_bf16"]["bf16"]["k2_launches"]
         + precision["images"]["k2_launches"],
-        "17": parallel["k2_launches"]}
+        "17": parallel["k2_launches"],
+        "18": encoders["k2_launches"]}
 
     main_b = mimic[SERVING_BATCH]
     entry = {
@@ -4162,6 +4606,10 @@ def main(argv=None) -> int:
             label: {k: parallel[label][k] for k in (
                 "k2_launches", "steps", "k2_launches_per_step")}
             for label in ("data2_sample", "data2_batch", "model2")}},
+        "parallel_encoders": {"cross_rank": encoders["k2_cross_rank"], **{
+            label: {k: encoders[label][k] for k in (
+                "k2_launches", "steps", "k2_launches_per_step")}
+            for label, *_ in ENC_RUNS if label.endswith("adam8bit")}},
     }
     log("earlier designs (not measured in this run): "
         + json.dumps(EARLIER))
@@ -4177,6 +4625,7 @@ def main(argv=None) -> int:
     log("experiments: " + json.dumps(experiments))
     log("precision: " + json.dumps(precision))
     log("parallel: " + json.dumps(parallel))
+    log("parallel_encoders: " + json.dumps(encoders))
     log(json.dumps({"kernels": [entry, adam_entry]}))
     log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
     log(card)

@@ -14,7 +14,10 @@ weight and bias (``parallel.sharding``); the step marks such a layer with
 functions: ``CopyToModelAxis`` (identity forward, all-reduce of the input
 gradient backward) and ``GatherFromModelAxis`` (all-gather of the output
 columns forward, the rank's own columns of the gradient backward). The
-weight gradient ``x^T dL/dy_r`` stays local and ``dL/dx`` is whole.
+weight gradient ``x^T dL/dy_r`` stays local and ``dL/dx`` is whole. Any
+other sharded leaf (a LayerNorm's or BatchNorm's vectors, a position
+table, a recurrent layer's gate columns) is made whole once per forward by
+``gather_leaf``, ``GatherFromModelAxis`` applied to a parameter.
 """
 from __future__ import annotations
 
@@ -135,18 +138,28 @@ class CopyToModelAxis(torch.autograd.Function):
 
 
 class GatherFromModelAxis(torch.autograd.Function):
-    """Forward, every rank's last-axis columns concatenated in model-axis
-    order; backward, the rank's own columns of the gradient."""
+    """Forward, every rank's pieces along ``dim`` (the last by default)
+    concatenated in model-axis order; backward, the rank's own piece of the
+    gradient."""
 
     @staticmethod
-    def forward(ctx, y, axis):
-        ctx.axis, ctx.width = axis, y.shape[-1]
-        return axis.all_gather(y, dim=y.dim() - 1)
+    def forward(ctx, y, axis, dim=-1):
+        ctx.axis, ctx.dim = axis, dim % y.dim()
+        ctx.width = y.shape[ctx.dim]
+        return axis.all_gather(y, dim=ctx.dim)
 
     @staticmethod
     def backward(ctx, grad):
         i, k = ctx.axis.index, ctx.width
-        return grad.narrow(grad.dim() - 1, i * k, k).contiguous(), None
+        return grad.narrow(ctx.dim, i * k, k).contiguous(), None, None
+
+
+def gather_leaf(t: torch.Tensor, axis, dim: int) -> torch.Tensor:
+    """The whole parameter of which ``t`` is the rank's piece along ``dim``
+    over the model ``axis``. Every rank of the axis computes the same graph
+    from the whole leaf, so the rank's slice of the gradient is the whole
+    true gradient of its piece."""
+    return GatherFromModelAxis.apply(t, axis, dim)
 
 
 def mlp_init(generator: torch.Generator, dims: Sequence[int],

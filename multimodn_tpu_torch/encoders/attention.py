@@ -9,6 +9,12 @@ The parameter tree has the JAX package's keys (``embed``, ``pos``, ``out``,
 packages as copies. The operations run in the JAX package's order:
 LayerNorm with the population variance, logits divided by ``sqrt(head_dim)``
 after the product, softmax, dropout on the attention branch only.
+
+On a mesh nothing here changes: under a model axis every dense layer runs
+column-parallel (``qkv``'s gathered output is split into q, k and v in
+this order) and the LayerNorm vectors and position table arrive whole
+(``parallel.dp_step.DataParallel.view``); under a data axis the dropout
+draws at the global batch's shape (``parallel.dp_step.RowStream``).
 """
 from __future__ import annotations
 

@@ -22,6 +22,16 @@ they cannot reach a real row; rows that the NaN skip zero-filled still feed
 the recurrence, as in the JAX package. ``unbatched_compat=False``: ``(B, F)``
 is a length-1 sequence per sample, ``(B, T, F)`` is taken as it comes, and
 the last time step's output is the state.
+
+On a mesh's data axis (a ``"data_axis"`` tag in the parameters,
+``parallel.dp_step.DataParallel.view``) each rank holds a block of the
+batch's rows, and the one sequence is still the GLOBAL batch's: the
+unbatched form gathers the input and state rows of every rank in rank
+order (``parallel.collectives.GatherRows``, one collective per call), runs
+the recurrence over them and keeps its own rows. The last rank's padding
+rows come last, after every real row, as a loader's padded rows do. Every
+rank runs the whole recurrence, as the JAX package's ``auto`` engine does
+on its global arrays.
 """
 from __future__ import annotations
 
@@ -31,6 +41,7 @@ import torch
 
 from multimodn_tpu_torch.core.nn import resolve_activation, uniform_init
 from multimodn_tpu_torch.encoders.base import MultiModEncoder
+from multimodn_tpu_torch.parallel.collectives import GatherRows
 
 
 def _rnn_layer_init(generator, in_dim: int, hidden: int, gates: int,
@@ -105,11 +116,17 @@ class _RecurrentEncoder(MultiModEncoder):
         layers = params["layers"]
         hidden = [hid for _, hid in self._layer_dims]
         if self.unbatched_compat and x.dim() == 2:
-            # (B, F) is ONE sequence of length B.
+            # (B, F) is ONE sequence of length B: the global batch's.
+            axis, rows = params.get("data_axis"), x.shape[0]
+            if axis is not None:
+                xs = GatherRows.apply(torch.cat([x, state], dim=-1), axis)
+                x, state = xs.split([x.shape[1], state.shape[1]], dim=-1)
             for p, hid in zip(layers[:-1], hidden[:-1]):
                 x = self.activation(self._run_layer(p, x, hid))
-            return self._run_layer(layers[-1], torch.cat([x, state], dim=-1),
-                                   hidden[-1])
+            out = self._run_layer(layers[-1], torch.cat([x, state], dim=-1),
+                                  hidden[-1])
+            return out if axis is None else \
+                out.narrow(0, axis.index * rows, rows)
         seq = (x if x.dim() == 3 else x[:, None, :]).transpose(0, 1)
         for p, hid in zip(layers[:-1], hidden[:-1]):
             seq = self.activation(self._run_layer(p, seq, hid))

@@ -24,6 +24,15 @@ over the real rows x H x W: a ``sample_mask`` drops padded rows and, from the
 chain, rows whose image holds a NaN) and with the stored statistics in
 evaluation. Training never changes the stored statistics, as in the JAX
 package: ``update_batch_stats`` is the explicit running-average update.
+
+On a mesh's data axis (a ``"data_axis"`` tag in the parameters,
+``parallel.dp_step.DataParallel.view``) each rank holds a block of the
+batch's rows and the moments are the GLOBAL batch's, as the JAX package's
+sums over a sharded batch are: one summing ``all_reduce`` of ``[sum of w,
+sum of w * x per channel]``, then one of ``sum of w * (x - mean)^2`` per
+channel (the two-pass variance, in the JAX package's order), two per
+BatchNorm (``parallel.collectives.AxisSum``, which also sums their
+gradients across the axis).
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ import torch.nn.functional as F
 from multimodn_tpu_torch.core.nn import dense_apply, dense_init
 from multimodn_tpu_torch.core.tree import tree_map
 from multimodn_tpu_torch.encoders.base import MultiModEncoder
+from multimodn_tpu_torch.parallel.collectives import AxisSum
 
 STAGES = (64, 128, 256, 512)
 BLOCKS_PER_STAGE = 2
@@ -67,34 +77,45 @@ def _channels(v):
     return v.reshape(1, -1, 1, 1)
 
 
-def batch_stats(x, mask=None):
+def batch_stats(x, mask=None, axis=None):
     """Per-channel mean and biased variance of ``x`` (B, C, H, W) over the
     rows where ``mask`` (B,) is 1, all of them without one, in ``x``'s
-    dtype; the count is ``max(rows x H x W, 1)``."""
+    dtype; the count is ``max(rows x H x W, 1)``. ``axis``: a mesh's data
+    axis whose ranks hold the other rows of the batch (the chain passes a
+    mask with it); the sums are taken over every rank's rows (module
+    docstring)."""
     if mask is None:
         mean = x.mean(dim=(0, 2, 3))
         return mean, ((x - _channels(mean)) ** 2).mean(dim=(0, 2, 3))
     w = mask.reshape(-1, 1, 1, 1).to(x.dtype)
-    denom = (w.sum() * (x.shape[2] * x.shape[3])).clamp_min(1.0)
-    mean = (x * w).sum(dim=(0, 2, 3)) / denom
-    var = (w * (x - _channels(mean)) ** 2).sum(dim=(0, 2, 3)) / denom
-    return mean, var
+    n, sx = w.sum().reshape(1), (x * w).sum(dim=(0, 2, 3))
+    if axis is not None:
+        n, sx = AxisSum.apply(torch.cat([n, sx]), axis).split(
+            [1, sx.shape[0]])
+    denom = (n[0] * (x.shape[2] * x.shape[3])).clamp_min(1.0)
+    mean = sx / denom
+    sq = (w * (x - _channels(mean)) ** 2).sum(dim=(0, 2, 3))
+    if axis is not None:
+        sq = AxisSum.apply(sq, axis)
+    return mean, sq / denom
 
 
-def _bn(x, p, train, mask=None):
-    mean, var = batch_stats(x, mask) if train else (p["mean"], p["var"])
+def _bn(x, p, train, mask=None, axis=None):
+    mean, var = batch_stats(x, mask, axis) if train else (p["mean"],
+                                                          p["var"])
     inv = torch.rsqrt(var + BN_EPS)
     return (x - _channels(mean)) * _channels(inv) * _channels(p["scale"]) \
         + _channels(p["bias"])
 
 
-def _trunk(params, images, train, mask=None, record=None):
+def _trunk(params, images, train, mask=None, record=None, axis=None):
     """(B, H, W, 3) -> (B, 512) pooled features. ``record(path, h)`` sees
-    each BatchNorm's input, ``path`` naming its ``bn`` dict in the tree."""
+    each BatchNorm's input, ``path`` naming its ``bn`` dict in the tree;
+    ``axis``: the data axis of the batch statistics (``batch_stats``)."""
     def bn(h, path, p):
         if record is not None:
             record(path, h)
-        return _bn(h, p["bn"], train, mask)
+        return _bn(h, p["bn"], train, mask, axis)
 
     x = _conv(images.permute(0, 3, 1, 2), params["stem"]["w"], 2)
     x = torch.relu(bn(x, ("stem",), params["stem"]))
@@ -198,8 +219,11 @@ class ResNet(MultiModEncoder):
         return walk(params, "")
 
     def features(self, params, images, train=False, mask=None):
-        """(B, H, W, 3) -> (B, 512) globally average-pooled features."""
-        return _trunk(params, images, train, mask)
+        """(B, H, W, 3) -> (B, 512) globally average-pooled features; under
+        a ``"data_axis"`` tag the training statistics are the global
+        batch's."""
+        return _trunk(params, images, train, mask,
+                      axis=params.get("data_axis"))
 
     def apply(self, params, state, x, train=False, generator=None,
               sample_mask=None):

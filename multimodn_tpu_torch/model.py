@@ -74,13 +74,6 @@ from multimodn_tpu_torch.utils.summary import summarize_model
 CHAIN_MODES = ("auto", "unrolled", "scan", "switch")
 TRACED_CHAINS = ("scan", "switch")
 DP_ENGINES = ("auto", "shard_map")
-# Column sharding covers these families (core.nn.dense_apply); the others
-# wait on ROADMAP.md Queue A item 23.
-TP_NOT_PORTED = (
-    "a mesh 'model' axis over 1 column-shards dense layers of the MLP "
-    "family (MLPEncoder, MIMICMLPEncoder, SLP encoders), dense decoders "
-    "and init states only; {name} is not column-sharded yet (ROADMAP.md "
-    "Queue A item 23). Use a data-only mesh for this model.")
 # Keys the per-batch order permutations of a training epoch apart from its
 # dropout draws (the JAX package folds the same constant into its batch key,
 # core/step.py:221).
@@ -142,10 +135,12 @@ class MultiModN:
     mesh, one process per device. The model lives on the rank's device
     (``mesh.device``); parameters are built from ``seed`` on every rank,
     broadcast from the mesh's first rank and placed by
-    ``parallel.shard_params`` (column pieces under a ``model`` axis).
-    Training, ``test`` and the fits take each rank's rows of every global
-    batch (``parallel.dp_step``): results equal the mesh-free model's up to
-    the order of the cross-rank sums, and bit for bit on one rank.
+    ``parallel.shard_params`` (column pieces under a ``model`` axis), for
+    every encoder family. Training, ``test`` and the fits take each rank's
+    rows of every global batch (``parallel.dp_step``; the recurrence of an
+    unbatched recurrent encoder and ResNet's BatchNorm moments still read
+    the global batch): results equal the mesh-free model's up to the order
+    of the cross-rank sums, and bit for bit on one rank.
     ``predict``, ``predict_proba``, ``get_states`` and ``fused_forward``
     answer the whole request on every rank, on whole weights, with no
     collective on the request (on a model axis the weights are gathered
@@ -256,7 +251,6 @@ class MultiModN:
         self.dp_engine = dp_engine
         self._dp = None
         if mesh is not None:
-            self._check_mesh_modules(mesh)
             self._place_on_mesh(self.params, broadcast=True)
         self._chain_spec = None
         # Samples served by a StaticInitState so far: its round-robin phase
@@ -270,29 +264,6 @@ class MultiModN:
     # ------------------------------------------------------------------
     # Mesh
     # ------------------------------------------------------------------
-    def _check_mesh_modules(self, mesh):
-        """Column sharding covers the MLP family, dense decoders and init
-        states; batch statistics (ResNet's BatchNorm) are not reduced
-        across a data axis."""
-        from multimodn_tpu_torch.decoders.decoders import ClassDecoder, \
-            MLPDecoder
-        from multimodn_tpu_torch.encoders.mlp import MIMICMLPEncoder, \
-            MLPEncoder
-        if mesh.axis_size("model") > 1:
-            for m in self.encoders + self.decoders:
-                if not isinstance(m, (MLPEncoder, MIMICMLPEncoder,
-                                      ClassDecoder, MLPDecoder)):
-                    raise NotImplementedError(
-                        TP_NOT_PORTED.format(name=type(m).__name__))
-        if mesh.axis_size("data") > 1:
-            for e in self.encoders:
-                if getattr(e, "_accepts_sample_mask", False):
-                    raise NotImplementedError(
-                        f"{type(e).__name__} normalizes with batch "
-                        "statistics, which a mesh 'data' axis over 1 would "
-                        "take per rank (ROADMAP.md Queue A item 23); train "
-                        "it on one rank.")
-
     def _place_on_mesh(self, whole: dict, broadcast: bool = False):
         """Shard a tree of whole parameter leaves over the mesh (after
         broadcasting it from the mesh's first rank) and set up the step."""

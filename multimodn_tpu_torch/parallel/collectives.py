@@ -10,6 +10,13 @@ axis, through an ``AxisGroup``:
   the axis' rank order;
 - ``broadcast(t)``: the axis' first rank's ``t`` to every rank.
 
+Two autograd functions carry a collective through a training step's
+backward: ``AxisSum`` (the SUM over the axis both ways: BatchNorm's global
+moments, ``encoders.resnet``) and ``GatherRows`` (the ranks' row blocks
+joined in rank order; backward, the gradient summed over the axis and cut
+to the rank's rows: the recurrence over the global batch,
+``encoders.recurrent``).
+
 NCCL takes CUDA tensors and ``gloo`` takes CPU tensors. ``gloo`` also
 accepts CUDA tensors for some collectives and not others (it has no CUDA
 ``all_gather``), so for the ``gloo`` backend a CUDA tensor is copied
@@ -142,3 +149,36 @@ def flat_all_reduce(axis: AxisGroup, tensors: Sequence[torch.Tensor],
     flat = axis.all_reduce(flat, op)
     pieces = torch.split(flat, [t.numel() for t in tensors])
     return [p.reshape(t.shape) for p, t in zip(pieces, tensors)]
+
+
+class AxisSum(torch.autograd.Function):
+    """Forward, the SUM of ``t`` over ``axis``; backward, the SUM of the
+    gradient over ``axis``: each rank's loss reads the global sum, so each
+    rank's part of it receives every rank's gradient. Half-precision
+    tensors are summed in float32 and rounded once."""
+
+    @staticmethod
+    def forward(ctx, t, axis):
+        ctx.axis = axis
+        return axis.all_reduce(t.float(), "sum").to(t.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.axis.all_reduce(grad.float(), "sum").to(grad.dtype), None
+
+
+class GatherRows(torch.autograd.Function):
+    """Forward, every rank's rows (one count on every rank) joined along
+    dimension 0 in axis order; backward, the gradient summed over ``axis``
+    (every rank's loss may read every row) and cut to the rank's rows."""
+
+    @staticmethod
+    def forward(ctx, t, axis):
+        ctx.axis, ctx.rows = axis, t.shape[0]
+        return axis.all_gather(t, dim=0)
+
+    @staticmethod
+    def backward(ctx, grad):
+        whole = ctx.axis.all_reduce(grad.float(), "sum").to(grad.dtype)
+        return whole.narrow(0, ctx.axis.index * ctx.rows,
+                            ctx.rows).contiguous(), None

@@ -22,9 +22,11 @@ so both engines are this one module, with every collective explicit:
   averaging (a mean of shard means) would differ whenever shards of a batch
   hold different numbers of valid rows;
 - after the backward, ONE ``all_reduce(SUM)`` of every gradient of the step
-  in one flat buffer; then ``gated_update`` with the global ``enc_gates``
-  (identical on every rank), skipped on every rank alike when the global
-  batch holds no real row;
+  in one flat buffer (and, under a model axis, one ``broadcast`` of the
+  replicated leaves' gradients from the axis' first rank,
+  ``replicated_from_first``); then ``gated_update`` with the global
+  ``enc_gates`` (identical on every rank), skipped on every rank alike
+  when the global batch holds no real row;
 - the metric grids are summed across ranks once per epoch (``sum_grids``,
   the loss and state-change grids scaled like the loss);
 - a ``StaticInitState`` serves bank rows by GLOBAL position: rank ``r``'s
@@ -40,8 +42,16 @@ one rank drawing the whole batch would.
 Under a ``model`` axis (tensor parallelism) the parameters are column
 pieces (``parallel.sharding``): ``view`` marks each sharded dense layer so
 ``core.nn.dense_apply`` computes its columns and gathers them, and gathers
-a sharded init state; ``Adam8bit``'s per-row absmax of a sharded leaf is a
-MAX across the model axis (``ops.fused_adam``, the cross-rank form).
+every other sharded leaf whole (LayerNorm and BatchNorm vectors, position
+tables, recurrent gate columns, a sharded init state); ``Adam8bit``'s
+per-row absmax of a sharded leaf is a MAX across the model axis
+(``ops.fused_adam``, the cross-rank form).
+
+Two encoder families read across the batch's rows, so under a data axis
+``view`` hands them the axis: an ``unbatched_compat`` recurrent encoder
+runs its one recurrence over the gathered global rows and keeps its own
+(``encoders.recurrent``), and ResNet's BatchNorm takes global masked
+moments in two summing ``all_reduce``s per layer (``encoders.resnet``).
 
 With one rank every collective returns its input and the scale is 1.0, so
 a one-rank mesh trains bit-equal to the mesh-free model.
@@ -54,7 +64,7 @@ import numpy as np
 import torch
 
 from multimodn_tpu_torch.core.fusion import sample_missing
-from multimodn_tpu_torch.core.nn import GatherFromModelAxis
+from multimodn_tpu_torch.core.nn import gather_leaf
 from multimodn_tpu_torch.core.step import GRID_KEYS, gated_update
 from multimodn_tpu_torch.core.tree import tree_leaves, tree_map, \
     tree_unflatten
@@ -207,28 +217,55 @@ class DataParallel:
                           self.data)
 
     def view(self, params):
-        """``params`` as the loss reads them under a model axis: each
-        column-sharded dense layer ``{"w", "b"}`` tagged with the model
-        axis (``core.nn.dense_apply``), a sharded init state gathered
-        whole."""
-        if self.model.size == 1:
+        """``params`` as the loss reads them on the mesh. Under a model
+        axis each column-sharded dense layer ``{"w", "b"}`` is tagged with
+        the axis (``core.nn.dense_apply`` runs it column-parallel) and every
+        other sharded leaf is made whole once (``core.nn.gather_leaf``).
+        Under a data axis every encoder's tree is tagged ``"data_axis"``:
+        the encoders that read across the batch (the recurrence over the
+        batch's rows, BatchNorm's moments) reach the global batch through
+        it."""
+        if self.model.size == 1 and self.data.size == 1:
             return params
 
-        def walk(node, split):
+        def walk(node, spec):
             if isinstance(node, dict):
-                if torch.is_tensor(node.get("w")) and split.get("w"):
+                w = spec.get("w")
+                if torch.is_tensor(node.get("w")) and w is not None and \
+                        w.split_dim() is not None:
                     return dict(node, model_axis=self.model)
-                return {k: walk(node[k], split[k]) for k in node}
+                return {k: walk(node[k], spec[k]) for k in node}
             if isinstance(node, list):
-                return [walk(v, s) for v, s in zip(node, split)]
-            return node
+                return [walk(v, s) for v, s in zip(node, spec)]
+            d = None if spec is None else spec.split_dim()
+            return node if d is None else gather_leaf(node, self.model, d)
 
-        out = walk(params, self.split)
-        init = out["init_state"]
-        if "value" in init and self.split["init_state"]["value"]:
-            out["init_state"] = dict(init, value=GatherFromModelAxis.apply(
-                init["value"], self.model))
+        out = walk(params, self.specs)
+        if self.data.size > 1:
+            out["encoders"] = [dict(p, data_axis=self.data)
+                               for p in out["encoders"]]
         return out
+
+    def replicated_from_first(self, grads: list) -> list:
+        """Under a model axis, the axis' first rank's gradient of every
+        replicated leaf on every rank of the axis (one ``broadcast``).
+        Every rank computes it from the same whole graph, but a
+        nondeterministic backward (cuDNN's convolution weight gradients)
+        can round it differently on each, and the replicas of a leaf must
+        not drift apart."""
+        if self.model.size == 1:
+            return grads
+        keep = [i for i, cut in enumerate(tree_leaves(self.split))
+                if not cut]
+        if not keep:
+            return grads
+        flat = self.model.broadcast(torch.cat([grads[i].reshape(-1)
+                                               for i in keep]))
+        grads = list(grads)
+        for i, piece in zip(keep, torch.split(flat, [grads[i].numel()
+                                                     for i in keep])):
+            grads[i] = piece.reshape(grads[i].shape)
+        return grads
 
     def cross_rank(self):
         """``gated_update``'s cross-rank argument: the sharded-leaf flags
@@ -253,7 +290,7 @@ class DataParallel:
         grads = flat_all_reduce(self.data, [
             torch.zeros_like(p) if g is None else g
             for p, g in zip(leaves, grads)])
-        grads = tree_unflatten(params, grads)
+        grads = tree_unflatten(params, self.replicated_from_first(grads))
         if n_real > 0:
             with torch.no_grad():
                 opt_state = gated_update(optimizer, grads, opt_state, params,

@@ -1119,6 +1119,76 @@ def test_fused_adam_cross_rank_form_matches_plain_on_two_ranks(cuda):
         assert launches == want == 2
 
 
+def _cross_rank_resnet_rank(rank, world):
+    """K2's cross-rank form on one optimizer step of a ResNet-18 encoder's
+    102 leaves (state 50) on a model axis of ``world``: the BatchNorm
+    vectors and the head split (this rank's columns), the 4-D kernels whole
+    in the same call, against the plain update of the whole leaves, sliced:
+    mismatching elements, launches and the leaf table's launches."""
+    from multimodn_tpu_torch.parallel import make_mesh
+    from multimodn_tpu_torch.parallel.sharding import leaf_spec
+    device = torch.device("cuda", 0)
+    mesh = make_mesh((1, world), ("data", "model"), device=device)
+    axis = mesh.axis("model")
+    gen = torch.Generator(device=device).manual_seed(7)
+    shapes = [tuple(t.shape) for t in tree_leaves(tenc.ResNet(
+        state_size=50).init(torch.Generator().manual_seed(0)))]
+    split = [leaf_spec(s, mesh).split_dim() is not None for s in shapes]
+    whole = []
+    for s in shapes:
+        p = torch.randn(s, generator=gen, device=device)
+        g = torch.randn(s, generator=gen, device=device) * 1e-2
+        mq, ms = fa.quantize_rows(torch.randn(s, generator=gen,
+                                              device=device) * 1e-2)
+        vq, vs = fa.quantize_rows(torch.rand(s, generator=gen,
+                                             device=device) * 1e-4)
+        whole.append((p, g, mq, ms, vq, vs,
+                      torch.tensor([0.1, 0.01], device=device), None))
+    kw = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, fmt="fp8")
+    want = fa.multi_leaf_update_ref(whole, **kw)
+
+    def cut(t):
+        k = t.shape[-1] // world
+        return t[..., rank * k:(rank + 1) * k].contiguous()
+
+    pieces = [(cut(w[0]), cut(w[1]), cut(w[2]), w[3].clone(), cut(w[4]),
+               w[5].clone(), w[6], None) if c else
+              (w[0].clone(), w[1], w[2].clone(), w[3].clone(), w[4].clone(),
+               w[5].clone(), w[6], None) for w, c in zip(whole, split)]
+    before = fa.FUSED_ADAM.launches
+    fa.multi_leaf_update(pieces, split=split, row_group=axis, **kw)
+    torch.cuda.synchronize()
+
+    def bits(t):
+        return t.view(torch.uint8) if t.element_size() == 1 else \
+            t.view(torch.int32)
+
+    bad = 0
+    for piece, w, c in zip(pieces, want, split):
+        take = cut if c else (lambda t: t)
+        for a, b in ((piece[0], take(w[0])), (piece[2], take(w[1])),
+                     (piece[3], w[2]), (piece[4], take(w[3])),
+                     (piece[5], w[4])):
+            bad += int((bits(a) != bits(b)).sum())
+    return bad, sum(split), fa.FUSED_ADAM.launches - before, \
+        fa.launches_per_update([tuple(p[0].shape) for p in pieces], split)
+
+
+@pytest.mark.cuda
+def test_fused_adam_cross_rank_form_on_resnet_leaves(cuda):
+    """Two ranks on the card, one optimizer step of a ResNet-18's 102
+    leaves in one call: the split BatchNorm vectors (narrower than a block's
+    lanes) and head through the kernel's cross-rank form beside whole 4-D
+    kernels, bit-equal to the plain update of the whole leaves, sliced;
+    launches as the leaf table says (two per group of 40 leaves)."""
+    from multimodn_tpu_torch.parallel.dryrun import spawn
+    for bad, n_split, launches, want in spawn(_cross_rank_resnet_rank, 2,
+                                              "gloo", "cuda:0"):
+        assert bad == 0
+        assert n_split > 40
+        assert launches == want == 6
+
+
 def _dp_step_rank(rank, world, shape):
     """One training epoch of 2 batches of 16 with ``Adam`` on the MIMIC
     model (dropout 0.2) on a data mesh of ``shape`` (None: mesh-free) on the
