@@ -10,12 +10,13 @@
     python3 chip_smoke.py --experiments-only
     python3 chip_smoke.py --precision-only
     python3 chip_smoke.py --parallel-only
+    python3 chip_smoke.py --vjp-only
 
 The first form is the smoke run; the second times phase 8 alone at another
 data size and depth, the third with every fold's batches streamed; the
 fourth runs the MNAR protocol grid alone, the fifth phase 13 alone, the
 sixth phase 14 alone, the seventh phase 15 alone, the eighth phase 16
-alone, the ninth phases 17 and 18 alone.
+alone, the ninth phases 17 and 18 alone, the tenth phase 19 alone.
 Phases, each fatal on failure:
 
 1. the card's name and power limit, torch and CUDA versions; TF32 off;
@@ -64,14 +65,17 @@ Phases, each fatal on failure:
    loaded. Each pipeline's wall time splits into data and cache build,
    MultiModN folds and HAIM folds, with training steps per second and the
    cache files' parses (each pipeline starts with no parse kept, as in a
-   process of its own). No kernel is on this path (the protocol trains
+   process of its own). Every cache file a pipeline parsed must go through
+   the native reader (``native/csv.cpp``) and read again bit-equal through
+   the Python parse (NaN where NaN), whose seconds are printed beside the
+   native parse's. No kernel is on this path (the protocol trains
    with ``Adam`` and tests through the plain chain, as the JAX package's
    does): both launch counters must read 0 after each pipeline;
 9. the Titanic quick-start and its pipelines: the port's six Titanic
    pipelines at 5 epochs (the reference's smoke depth) with the results
    CSV written in a temporary directory, plots and pickles off; then the
-   quick-start (the titanic_mlp config) for its published 300 epochs of
-   ``fit``, then ``test``, the last epoch's training loss below the
+   quick-start (the titanic_mlp config) for 100 of its published 300
+   epochs of ``fit``, then ``test``, the last epoch's training loss below the
    first's; then the trained quick-start, partitioned, featurewise and
    missingness models through ``export_model`` -> ``load_model``, each
    answering its validation set in requests of 16 rows through
@@ -133,7 +137,7 @@ Phases, each fatal on failure:
    model exported, loaded and serving 8 requests through K1 against the
    plain chain; then the featurewise chain (1901 ``MLPFeatureEncoder(50,
    32)``, one ``MLPDecoder``; 256 seeded rows, 10% NaN, batches of 64)
-   trained 2 epochs with ``Adam8bit``, once with ``shuffle_mode`` (the scan
+   trained 1 epoch with ``Adam8bit``, once with ``shuffle_mode`` (the scan
    chain) and once on batches that each carry their own permutation of the
    features: per run one step on the card against the CPU, steps/s, K2
    launches per step (``launches_per_update`` of ~7,600 leaves), a
@@ -158,7 +162,7 @@ Phases, each fatal on failure:
    with NaN rows through K1 (launches = requests x the plan's, 2 at MIMIC
    width) against the plain chain;
 15. the experiment surface and ahead-of-time serving at the MIMIC model's
-   full width on phase 6's cohort: ``sweep_fit_best`` over 4 seeds with
+   full width on phase 6's cohort: ``sweep_fit_best`` over 2 seeds with
    ``Adam8bit``, 2 epochs of batch 16, ``on_epoch`` set (K2 once per step of
    every seed; each seed bit-equal, parameters, moment codes, scales,
    scores and best epoch, to that seed's own ``fit_best`` on a fresh
@@ -173,7 +177,7 @@ Phases, each fatal on failure:
    ``annotate`` (the trace must name the region); the port of
    ``examples/production_features.py`` on the card;
 16. mixed precision and the ResNet-18 image encoder: (a) the MIMIC model
-   at full width with ``compute_dtype='bfloat16'``, ``fit_best`` for 3
+   at full width with ``compute_dtype='bfloat16'``, ``fit_best`` for 2
    epochs of batch 16 on phase 6's cohort with ``Adam8bit`` (K2 once per
    step; masters fp32), its final training loss within the JAX package's
    bound (rtol 0.05, atol 0.02) of the same run in fp32, one step on the
@@ -196,7 +200,7 @@ Phases, each fatal on failure:
    evaluation outputs against the CPU;
 17. multi-GPU parity (``multimodn_tpu_torch.parallel``) on the one card,
    the MIMIC model at full width (dropout 0.2) on 512 + 128 seeded rows
-   (30% of cells missing), batch 16, ``fit_best`` for 3 epochs with
+   (30% of cells missing), batch 16, ``fit_best`` for 2 epochs with
    ``Adam8bit``: (a) one rank in a NCCL group in this process,
    ``MultiModN(mesh=make_mesh())`` under both ``dp_engine``s bit-equal to
    the mesh-free run beside it (parameters, 8-bit states, scores, grids),
@@ -244,14 +248,28 @@ Phases, each fatal on failure:
    each model's leaves (split pieces beside whole leaves, the ResNet's 4-D
    kernels among them) bit-equal to the plain update of the whole leaves,
    sliced, timed with and without its gloo MAX against its bound;
-19. the earlier designs' times from PERF.md on a line of their own, the
+19. K1 with a gradient (``make_fused_chain_vjp``) at ``bench_pallas.py``'s
+   two configurations, each a ``MultiModN`` of ``MIMICMLPEncoder``s
+   (dropout 0) and one ``MLPDecoder(state, hidden, 2)`` on seeded data with
+   ~30% of ``valid`` 0: shipped (widths 10, 1024, 768, 99, state 50, hidden
+   (32, 32), batch 1024) and scaled (4 x 1024, state 256, hidden (1024,
+   1024), batch 512). K1's forward within 1e-4 of the plain chain's
+   (relative to the largest value); ``bench_pallas.py``'s loss and every
+   gradient (layers, data, init row) through the VJP against autograd
+   through the plain chain (loss 1e-5 relative, each gradient 1e-4 of its
+   leaf's largest value); ten ``Adam(1e-3)`` steps through each, the
+   parameters within 2 x 10 lr, K1 launched ``ChainSpec.launches`` times
+   per step and K2 never; ``fwd_plain_ms``, ``fwd_k1_ms`` (and on 16-row
+   tiles), ``train_plain_ms`` and ``train_k1_vjp_ms`` (CUDA events), each
+   stage's device time, and the forward's and the training step's bounds;
+20. the earlier designs' times from PERF.md on a line of their own, the
    ``mnar``, ``transformer``, ``resume``, ``orders``, ``dropin``,
-   ``experiments``, ``precision``, ``parallel`` and ``parallel_encoders``
-   lines, one ``{"kernels": [...]}`` line of this run's numbers (launches
-   summed over every path that ran the kernel, by phase in
+   ``experiments``, ``precision``, ``parallel``, ``parallel_encoders`` and
+   ``vjp`` lines, one ``{"kernels": [...]}`` line of this run's numbers
+   (launches summed over every path that ran the kernel, by phase in
    ``launches_by_phase``; K1's with ``titanic``, ``mnar``, ``resumed``,
-   ``orders``, ``dropin``, ``experiments``, ``precision`` and ``parallel``
-   blocks, K2's with ``resume``, ``orders``, ``experiments``,
+   ``orders``, ``dropin``, ``experiments``, ``precision``, ``parallel``
+   and ``vjp`` blocks, K2's with ``resume``, ``orders``, ``experiments``,
    ``precision``, ``parallel`` and ``parallel_encoders`` blocks), the
    script's wall time, the card's line, and last the ``{"ok": true, ...}``
    line.
@@ -286,7 +304,7 @@ import torch
 from multimodn_tpu_torch import Adam, Adam8bit, InferenceSession, \
     MultiModN, MultiModNHistory, export_model, load_model
 from multimodn_tpu_torch.core.fusion import default_order, forward_chain
-from multimodn_tpu_torch.core.tree import tree_leaves
+from multimodn_tpu_torch.core.tree import tree_leaves, tree_map
 from multimodn_tpu_torch.data import ArrayLoader, PartitionDataset, Subset
 from multimodn_tpu_torch.decoders import ClassDecoder, LogisticDecoder, \
     MLPDecoder
@@ -296,7 +314,8 @@ from multimodn_tpu_torch.ops import fused_adam as fa
 from multimodn_tpu_torch.ops.build import library_path
 from multimodn_tpu_torch.ops.fused_adam import FUSED_ADAM
 from multimodn_tpu_torch.ops.fused_chain import FUSED_CHAIN, ChainSpec, \
-    fused_chain_forward, fused_chain_forward_ref
+    fused_chain_forward, fused_chain_forward_ref, make_fused_chain_forward, \
+    make_fused_chain_vjp, make_xla_chain_forward
 
 START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -353,6 +372,11 @@ DEVICE_TOL = 6 * ADAM_LR
 
 def log(*args):
     print(*args, flush=True)
+
+
+def phase(title):
+    """A phase's heading, with the script's seconds so far."""
+    log(f"== {title} [{time.perf_counter() - START:.1f} s]")
 
 
 def card_line() -> str:
@@ -1128,6 +1152,31 @@ def scratch_storage(prefix):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def parse_check(parses, read_numeric, table_io):
+    """Every cache file a pipeline parsed, read again: the native reader
+    must take it, and the Python parse must give the same bits (NaN where
+    NaN). The seconds of the pipeline's first native parse of each file
+    beside the Python parse's, timed here after the pipeline."""
+    from multimodn_tpu_torch.data import native
+    first = {}
+    for sec, _key, _rows, path in parses:
+        first.setdefault(path, sec)
+    refused, differ, python_s = 0, 0, 0.0
+    for path in first:
+        refused += native.read_csv_f64(path) is None
+        values = read_numeric(path)[1]
+        t0 = time.perf_counter()
+        py = table_io._parse_numeric(path)[0].T
+        python_s += time.perf_counter() - t0
+        nan = np.isnan(values)
+        differ += not (np.array_equal(nan, np.isnan(py)) and np.array_equal(
+            values[~nan].view(np.uint64), py[~nan].view(np.uint64)))
+    return {"cache_files": len(first), "files_python_parse": refused,
+            "files_not_bit_equal": differ,
+            "native_parse_s": sum(first.values()),
+            "python_parse_s": python_s}
+
+
 def run_protocol(device, patients=None, epochs=PROTOCOL_EPOCHS,
                  stream_folds=False):
     """Phase 8: the three MIMIC pipelines on the card, on the synthetic
@@ -1167,7 +1216,7 @@ def run_protocol(device, patients=None, epochs=PROTOCOL_EPOCHS,
         t0 = time.perf_counter()
         out = read_numeric(path)
         parses.append((time.perf_counter() - t0, id(out[1]),
-                       out[1].shape[1]))
+                       out[1].shape[1], path))
         return out
 
     mimic_data.read_numeric_csv = timed_read
@@ -1220,9 +1269,14 @@ def run_protocol(device, patients=None, epochs=PROTOCOL_EPOCHS,
                                      f"{launched} times on the protocol "
                                      f"path, which runs neither")
             first = {}
-            for sec, key, _ in parses:
+            for sec, key, _, _ in parses:
                 first.setdefault(key, sec)
             miss_s = sum(first.values())
+            native_read = parse_check(parses, read_numeric, table_io)
+            if native_read["files_python_parse"] or \
+                    native_read["files_not_bit_equal"]:
+                raise AssertionError(f"{name}: the cache files' native read "
+                                     f"{native_read}")
             other = wall - sum(seconds.values())
             r = {"patients": patients, "epochs": epochs,
                  "stream_folds": stream_folds,
@@ -1243,6 +1297,8 @@ def run_protocol(device, patients=None, epochs=PROTOCOL_EPOCHS,
                  "parse_miss_s": miss_s,
                  "parse_hit_s": sum(p[0] for p in parses) - miss_s,
                  "cache_rows": max(p[2] for p in parses),
+                 "data_share": seconds.get("data", 0.0) / wall,
+                 **native_read,
                  "k1_launches": launched[0], "k2_launches": launched[1]}
             results[name] = r
             log(f"  {name}: {json.dumps(r)}")
@@ -1259,7 +1315,9 @@ def run_protocol(device, patients=None, epochs=PROTOCOL_EPOCHS,
 TITANIC_PIPELINES = ("titanic_mlp", "titanic_partitioned",
                      "titanic_featurewise", "titanic_missingness",
                      "titanic_lstm", "titanic_rnn")
-TITANIC_EPOCHS, QUICKSTART_EPOCHS = 5, 300
+# The quick-start's published depth is 300 epochs; 100 keep the script
+# inside its time limit (the loss has fallen well before).
+TITANIC_EPOCHS, QUICKSTART_EPOCHS = 5, 100
 # K1's Titanic shapes: the pipeline whose trained model each one serves.
 TITANIC_SERVED = (("S=1, MLPEncoder(1, 6, (5, 5))", "titanic_mlp"),
                   ("S=5, partitions 3 + 2", "titanic_partitioned"),
@@ -1313,8 +1371,8 @@ def run_titanic_pipelines(device, work):
 
 
 def run_quickstart(device):
-    """The quick-start: the titanic_mlp config for 300 epochs of ``fit``
-    with validation, then ``test`` on the validation set."""
+    """The quick-start: the titanic_mlp config for ``QUICKSTART_EPOCHS`` of
+    ``fit`` with validation, then ``test`` on the validation set."""
     from multimodn_tpu_torch.pipelines.titanic import common
     cfg = titanic_pipeline("titanic_mlp").CONFIG
     train, val, _ = common.split(cfg, 0)
@@ -2205,7 +2263,7 @@ def run_resume(device):
 ORDERS_EPOCHS = 2
 FEATUREWISE_E, FEATUREWISE_HIDDEN = sum(MIMIC_WIDTHS), 32
 FEATUREWISE_SAMPLES, FEATUREWISE_BATCH = 256, 64
-FEATUREWISE_EPOCHS, FEATUREWISE_MISSING = 2, 0.1
+FEATUREWISE_EPOCHS, FEATUREWISE_MISSING = 1, 0.1
 # One Adam8bit step from the same weights on the card and the CPU, an end
 # to end check of the chain and its gradients (K2 itself is held bit for
 # bit on these leaves by time_adam_featurewise): the first step moves a
@@ -2637,7 +2695,7 @@ def run_dropin(device):
 # patience, seed 0's best model as a torch.export artifact served at three
 # batch sizes against K1 and the plain chain, a profiling.trace of 8 steps,
 # and the production-features example.
-EXP_SEEDS, EXP_EPOCHS = (0, 1, 2, 3), 2
+EXP_SEEDS, EXP_EPOCHS = (0, 1), 2
 EXP_FOLDS, EXP_FOLD_EPOCHS, EXP_PATIENCE = 2, 3, 1
 EXP_BATCHES = (1, 16, 32)
 # The artifact runs the plain chain's aten ops on the card, so it agrees with
@@ -2908,7 +2966,7 @@ def run_experiments(device):
 # in fp32 and in bf16 through Adam8bit, K2 held bit for bit on every ResNet
 # leaf, the masked BatchNorm, update_batch_stats then eval-mode predict, and
 # one step on the card against the CPU.
-PRECISION_EPOCHS, PRECISION_DTYPE = 3, "bfloat16"
+PRECISION_EPOCHS, PRECISION_DTYPE = 2, "bfloat16"
 # The JAX package's own bound between a bf16 and an fp32 training run
 # (tests/test_mixed_precision.py:37-39).
 BF16_LOSS_RTOL, BF16_LOSS_ATOL = 0.05, 0.02
@@ -3301,7 +3359,7 @@ def run_precision(device, gen):
 # and (b)-(d) two ranks on the same card over gloo (NCCL refuses two ranks
 # on one device), started by parallel.dryrun.spawn.
 # ---------------------------------------------------------------------------
-PAR_TRAIN, PAR_VAL, PAR_EPOCHS = 512, 128, 3
+PAR_TRAIN, PAR_VAL, PAR_EPOCHS = 512, 128, 2
 PAR_FOLD_EPOCHS, PAR_SEEDS = 2, (0, 1)
 # Two ranks sum gradients and grids in another order than one, so runs on
 # different rank counts are held at the JAX package's mesh tolerance (rtol
@@ -4139,7 +4197,7 @@ def encoder_rank(rank, world, work):
         split = [leaf_spec(s, tp).split_dim() is not None for s in shapes]
         out["k2_cross_rank"][kind] = cross_rank_step(
             tp.axis("model"), device, shapes, split, kind,
-            timed=kind != "lstm")
+            timed=True)
     return out
 
 
@@ -4273,6 +4331,222 @@ def run_parallel_encoders(device, rank_device_name="cuda:0"):
     return out
 
 
+# Phase 19: K1 with a gradient (make_fused_chain_vjp) at bench_pallas.py's
+# two configurations (bench_pallas.py:40-45), with ~30% of valid cells 0.
+VJP_CONFIGS = {
+    "shipped": {"widths": MIMIC_WIDTHS, "state": 50, "hidden": (32, 32),
+                "batch": 1024},
+    "scaled": {"widths": (1024,) * 4, "state": 256, "hidden": (1024, 1024),
+               "batch": 512},
+}
+VJP_STEPS, VJP_LR = 10, 1e-3
+# Both backwards are the same plain ops on the same inputs; they differ only
+# through the loss's cotangent 2 states / N, read from K1's forward (within
+# TOL of the plain one) on one side: the loss within 1e-5 relative, each
+# gradient leaf within 1e-4 of its largest magnitude. Adam moves a parameter
+# by up to lr per step either way where a near-zero gradient's sign rounds
+# differently, so ten steps apart by at most 2 x 10 lr.
+VJP_LOSS_RTOL, VJP_GRAD_TOL = 1e-5, 1e-4
+VJP_STEP_TOL = 2 * VJP_STEPS * VJP_LR
+VJP_TOL_REASON = ("the backwards are the same plain ops; they differ only "
+                  "through the loss's cotangent 2 states / N, read from "
+                  "K1's forward; Adam: up to lr per step either way")
+
+
+def vjp_model(cfg, device):
+    S = cfg["state"]
+    return MultiModN(
+        S, [MIMICMLPEncoder(S, w, cfg["hidden"], dropout=0.0)
+            for w in cfg["widths"]],
+        [MLPDecoder(S, cfg["hidden"], 2)], 1.0, 0.0, seed=0, device=device)
+
+
+def vjp_params(model):
+    """The model's layers as fresh leaves that take gradients."""
+    return tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                    {"encoders": model.params["encoders"],
+                     "decoders": model.params["decoders"]})
+
+
+def vjp_loss(fwd, params, data, valid, init):
+    """bench_pallas.py's loss (bench_pallas.py:100-102)."""
+    states, outs = fwd(params, data, valid, init)
+    return (states ** 2).mean() + sum(o.mean() for o in outs)
+
+
+def vjp_grads(fwd, model, data, valid, init):
+    """The loss and its gradients for every layer leaf, the data and the
+    init row."""
+    params = vjp_params(model)
+    xs = [d.clone().requires_grad_(True) for d in data]
+    row = init.clone().requires_grad_(True)
+    loss = vjp_loss(fwd, params, xs, valid, row)
+    return loss.item(), torch.autograd.grad(
+        loss, tree_leaves(params) + xs + [row])
+
+
+def vjp_train(fwd, model, data, valid, init):
+    """``VJP_STEPS`` steps of ``Adam(VJP_LR)`` on the layers: the losses
+    and the final leaves."""
+    params, opt = vjp_params(model), Adam(VJP_LR)
+    state, losses = opt.init(params), []
+    for _ in range(VJP_STEPS):
+        loss = vjp_loss(fwd, params, data, valid, init)
+        leaves = tree_leaves(params)
+        by_leaf = dict(zip(map(id, leaves),
+                           torch.autograd.grad(loss, leaves)))
+        upd, state = opt.update(tree_map(lambda p: by_leaf[id(p)], params),
+                                state)
+        params = tree_map(lambda p, u: (p + u).detach().requires_grad_(True),
+                          params, upd)
+        losses.append(loss.item())
+    return losses, tree_leaves(params)
+
+
+def train_bound(spec: ChainSpec, B: int):
+    """``bound`` for the loss and the layers' gradients: the forward's
+    products, each weight's gradient (one MAC per forward MAC) and each
+    product's input gradient except where the input is the data (Stage A's
+    jobs); every input read once, each weight's gradient written once."""
+    fwd_ms, _by, flops, nbytes = bound(spec, B)
+    E = len(spec.encoders)
+    data_macs = sum(j.K * j.N for j in spec.a_jobs)
+    flops = 3 * flops - 2 * data_macs * B
+    nbytes = nbytes - 4 * (E + 1) * B * (
+        spec.state_size + sum(d.n_classes for d in spec.decoders)) \
+        + 4 * (spec.n_weights + 1)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
+
+
+def run_vjp_config(name, cfg, device, gen):
+    model = vjp_model(cfg, device)
+    spec = ChainSpec(model.encoders, model.decoders, model.state_size)
+    args = (model.encoders, model.decoders, model.state_size)
+    plain = make_xla_chain_forward(*args)
+    k1 = make_fused_chain_forward(*args)
+    trainable = make_fused_chain_vjp(*args)
+    B = cfg["batch"]
+    data, valid = kernel_inputs(spec, B, gen)
+    init = model.params["init_state"]["value"][0].detach().contiguous()
+    failures = []
+
+    # The forward: K1 against the plain version, relative to the largest
+    # value (the scaled model's states reach past 1).
+    with torch.no_grad():
+        got = k1(model.params, data, valid, init)
+        want = plain(model.params, data, valid, init)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    scale = max(t.abs().max().item() for t in [want[0], *want[1]])
+    fwd_rel = err / max(scale, 1.0)
+    if not fwd_rel <= TOL:
+        failures.append(f"{name}: K1's forward {err:.3e} from the plain "
+                        f"chain ({fwd_rel:.3e} relative, tol {TOL:g})")
+    del got, want
+
+    # The loss and every gradient through K1 against the plain chain.
+    loss_k1, grads_k1 = vjp_grads(trainable, model, data, valid, init)
+    loss_plain, grads_plain = vjp_grads(plain, model, data, valid, init)
+    loss_rel = abs(loss_k1 - loss_plain) / abs(loss_plain)
+    grad_rel = max((a - b).abs().max().item() / max(b.abs().max().item(),
+                                                    1e-30)
+                   for a, b in zip(grads_k1, grads_plain))
+    if not loss_rel <= VJP_LOSS_RTOL:
+        failures.append(f"{name}: loss {loss_k1} through K1, {loss_plain} "
+                        f"plain ({loss_rel:.3e} relative)")
+    if not grad_rel <= VJP_GRAD_TOL:
+        failures.append(f"{name}: a gradient {grad_rel:.3e} of its leaf's "
+                        f"largest value from the plain chain's")
+    del grads_k1, grads_plain
+
+    # Ten Adam steps through each: the path whose K1 launches are counted.
+    torch.cuda.synchronize()
+    FUSED_CHAIN.launches = FUSED_ADAM.launches = 0
+    losses_k1, leaves_k1 = vjp_train(trainable, model, data, valid, init)
+    torch.cuda.synchronize()
+    launches, k2_launches = FUSED_CHAIN.launches, FUSED_ADAM.launches
+    losses_plain, leaves_plain = vjp_train(plain, model, data, valid, init)
+    param_diff = max((a - b).abs().max().item()
+                     for a, b in zip(leaves_k1, leaves_plain))
+    loss_diff = max(abs(a - b) / abs(b)
+                    for a, b in zip(losses_k1, losses_plain))
+    if (launches, k2_launches) != (VJP_STEPS * spec.launches, 0):
+        failures.append(f"{name}: {launches} K1 and {k2_launches} K2 "
+                        f"launches in {VJP_STEPS} steps, want "
+                        f"{VJP_STEPS * spec.launches} and 0")
+    if not param_diff <= VJP_STEP_TOL:
+        failures.append(f"{name}: parameters {param_diff:.3e} apart after "
+                        f"{VJP_STEPS} Adam steps (tol {VJP_STEP_TOL:g})")
+    if not all(np.isfinite(losses_k1)) or not losses_k1[-1] < losses_k1[0]:
+        failures.append(f"{name}: losses through K1 {losses_k1}")
+    del leaves_k1, leaves_plain
+
+    # Times, as bench_pallas.json names them.
+    params = vjp_params(model)
+    leaves = tree_leaves(params)
+    layers = spec.layer_params(model.params)
+    with torch.no_grad():
+        fwd_plain_ms = time_ms(lambda: plain(model.params, data, valid,
+                                             init))
+        fwd_k1_ms, per_call = time_counted(
+            lambda: k1(model.params, data, valid, init), FUSED_CHAIN)
+        small_tiles_ms = time_ms(lambda: FUSED_CHAIN.launch(
+            spec, layers, data, valid, init, large_tiles=False))
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        stage_a_blocks = [b for _i, _r, b in spec.stage_a_plan(B, n_sm)[0]]
+        stages = stage_times(lambda: k1(model.params, data, valid, init))
+
+    def train_ms(fwd):
+        return time_ms(lambda: torch.autograd.grad(
+            vjp_loss(fwd, params, data, valid, init), leaves))
+
+    train_plain_ms, train_k1_vjp_ms = train_ms(plain), train_ms(trainable)
+    bound_ms, bound_by, flops, nbytes = bound(spec, B)
+    tbound_ms, tbound_by, tflops, tbytes = train_bound(spec, B)
+    r = {"config": {k: list(v) if isinstance(v, tuple) else v
+                    for k, v in cfg.items()},
+         "valid_share": valid.mean().item(),
+         "fwd_max_abs_err": err, "fwd_rel_err": fwd_rel, "tolerance": TOL,
+         "loss_k1": loss_k1, "loss_plain": loss_plain,
+         "loss_rel_err": loss_rel, "grad_leaf_rel_err": grad_rel,
+         "grad_tolerance": VJP_GRAD_TOL, "steps": VJP_STEPS,
+         "losses_k1": losses_k1, "losses_plain": losses_plain,
+         "step_loss_rel_diff": loss_diff, "param_max_diff": param_diff,
+         "param_tolerance": VJP_STEP_TOL, "launches": launches,
+         "launches_per_call": per_call, "fwd_plain_ms": fwd_plain_ms,
+         "fwd_k1_ms": fwd_k1_ms, "fwd_k1_small_tiles_ms": small_tiles_ms,
+         "stage_ms": stages, "stage_a_blocks": stage_a_blocks,
+         "train_plain_ms": train_plain_ms,
+         "train_k1_vjp_ms": train_k1_vjp_ms,
+         "fwd_bound_ms": bound_ms, "fwd_bound_by": bound_by,
+         "fwd_flops": flops, "fwd_bytes": nbytes,
+         "train_bound_ms": tbound_ms, "train_bound_by": tbound_by,
+         "train_flops": tflops, "train_bytes": tbytes,
+         "region_floats": spec.region_len}
+    log(f"  {name}: " + json.dumps(r))
+    return r, failures
+
+
+def run_vjp(device):
+    """Phase 19: ``make_fused_chain_vjp`` at both configurations."""
+    gen = torch.Generator(device=device).manual_seed(19)
+    log(f"tolerances: forward {TOL:g} of the largest value, loss "
+        f"{VJP_LOSS_RTOL:g} relative, gradients {VJP_GRAD_TOL:g} of each "
+        f"leaf's largest value, parameters after {VJP_STEPS} Adam steps "
+        f"{VJP_STEP_TOL:g}: {VJP_TOL_REASON}")
+    out, failures = {}, []
+    for name, cfg in VJP_CONFIGS.items():
+        out[name], fails = run_vjp_config(name, cfg, device, gen)
+        failures += fails
+    out["k1_launches"] = sum(out[n]["launches"] for n in VJP_CONFIGS)
+    log(f"  phase 19 [{card_line()}]")
+    if failures:
+        raise AssertionError("phase 19: " + "; ".join(failures))
+    return out
+
+
 def build_kernels():
     """Build every kernel library at once (one nvcc per source)."""
     with ThreadPoolExecutor(max_workers=2) as pool:
@@ -4327,6 +4601,10 @@ def parse_args(argv=None):
                         "rank over NCCL, two ranks on the card over gloo; "
                         "every encoder on a mesh) only and end with the "
                         "parallel_encoders line (no ok line)")
+    p.add_argument("--vjp-only", action="store_true",
+                   help="run phases 1, 2 and 19 (K1 with a gradient at "
+                        "bench_pallas.py's two configurations) only and end "
+                        "with the vjp line (no ok line)")
     p.add_argument("--resume-child", nargs=2, metavar=("KIND", "DIR"),
                    help=argparse.SUPPRESS)
     return p.parse_args(argv)
@@ -4351,7 +4629,7 @@ def main(argv=None) -> int:
     if args.resume_child:
         resume_child(*args.resume_child)
 
-    log("== phase 1: device")
+    phase("phase 1: device")
     card = card_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
@@ -4366,7 +4644,7 @@ def main(argv=None) -> int:
         log(card)
         return 0
     if args.mnar_only:
-        log("== phase 10: MNAR protocol grid")
+        phase("phase 10: MNAR protocol grid")
         variants = MNAR_FULL_VARIANTS if args.variants is None else [
             (v.split(":")[0], float(v.split(":")[1]) if ":" in v else 0.0)
             for v in args.variants]
@@ -4377,111 +4655,121 @@ def main(argv=None) -> int:
         log(card)
         return 0
 
-    log("== phase 2: build")
+    phase("phase 2: build")
     t0 = time.perf_counter()
     build_kernels()
     log(f"fused_chain.cu and fused_adam.cu built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
     if args.orders_only:
-        log("== phase 13: encoding orders")
+        phase("phase 13: encoding orders")
         log("orders: " + json.dumps(run_orders(device)))
         log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
         log(card)
         return 0
     if args.dropin_only:
-        log("== phase 14: drop-in torch surface")
+        phase("phase 14: drop-in torch surface")
         log("dropin: " + json.dumps(run_dropin(device)))
         log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
         log(card)
         return 0
     if args.experiments_only:
-        log("== phase 15: experiments and ahead-of-time serving")
+        phase("phase 15: experiments and ahead-of-time serving")
         log("experiments: " + json.dumps(run_experiments(device)))
         log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
         log(card)
         return 0
     if args.parallel_only:
-        log("== phase 17: multi-GPU parity")
+        phase("phase 17: multi-GPU parity")
         log("parallel: " + json.dumps(run_parallel(device)))
-        log("== phase 18: every encoder on a mesh")
+        phase("phase 18: every encoder on a mesh")
         log("parallel_encoders: " + json.dumps(run_parallel_encoders(
             device)))
         log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
         log(card)
         return 0
+    if args.vjp_only:
+        phase("phase 19: K1 with a gradient")
+        log("vjp: " + json.dumps(run_vjp(device)))
+        log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
+        log(card)
+        return 0
     if args.precision_only:
-        log("== phase 16: mixed precision and the ResNet image model")
+        phase("phase 16: mixed precision and the ResNet image model")
         log("precision: " + json.dumps(run_precision(
             device, torch.Generator(device=device).manual_seed(16))))
         log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
         log(card)
         return 0
 
-    log("== phase 3: kernel against plain")
+    phase("phase 3: kernel against plain")
     log(f"tolerance {TOL:g}: {TOL_REASON}")
     gen = torch.Generator(device=device).manual_seed(0)
     mimic = check_kernel("mimic", mimic_model(device), KERNEL_BATCHES, gen)
     check_kernel("small-last-concat", small_model(device), (7, 1000), gen)
 
-    log("== phase 4: serving")
+    phase("phase 4: serving")
     launches, serving = serve(device)
 
-    log("== phase 5: fused Adam kernel against plain")
+    phase("phase 5: fused Adam kernel against plain")
     log(f"tolerance {ADAM_TOL:g}: {ADAM_TOL_REASON}")
     adam = check_adam(device, gen)
 
-    log("== phase 6: training")
+    phase("phase 6: training")
     runs = check_training(device)
     profile = profile_training(device)
 
-    log("== phase 7: card against CPU")
+    phase("phase 7: card against CPU")
     device_err = check_device_vs_cpu(device)
 
-    log("== phase 8: MIMIC protocol")
+    phase("phase 8: MIMIC protocol")
     log(card_line())
     protocol = run_protocol(device, args.patients, args.epochs)
 
-    log("== phase 9: Titanic")
+    phase("phase 9: Titanic")
     log(card_line())
     titanic = run_titanic(device)
 
-    log("== phase 10: MNAR protocol")
+    phase("phase 10: MNAR protocol")
     log(card_line())
     mnar = run_mnar(device, MNAR_PATIENTS, MNAR_FOLDS, MNAR_EPOCHS,
                     MNAR_VARIANTS)
     mnar_served = serve_mnar_model(device)
 
-    log("== phase 11: transformer")
+    phase("phase 11: transformer")
     log(card_line())
     transformer = run_transformer(device)
 
-    log("== phase 12: resumable fits, streaming and disk loaders")
+    phase("phase 12: resumable fits, streaming and disk loaders")
     log(card_line())
     resume = run_resume(device)
 
-    log("== phase 13: encoding orders")
+    phase("phase 13: encoding orders")
     log(card_line())
     orders = run_orders(device)
 
-    log("== phase 14: drop-in torch surface")
+    phase("phase 14: drop-in torch surface")
     log(card_line())
     dropin = run_dropin(device)
 
-    log("== phase 15: experiments and ahead-of-time serving")
+    phase("phase 15: experiments and ahead-of-time serving")
     log(card_line())
     experiments = run_experiments(device)
 
-    log("== phase 16: mixed precision and the ResNet image model")
+    phase("phase 16: mixed precision and the ResNet image model")
     log(card_line())
     precision = run_precision(device, gen)
 
-    log("== phase 17: multi-GPU parity")
+    phase("phase 17: multi-GPU parity")
     log(card_line())
     parallel = run_parallel(device)
 
-    log("== phase 18: every encoder on a mesh")
+    phase("phase 18: every encoder on a mesh")
     log(card_line())
     encoders = run_parallel_encoders(device)
+
+    phase("phase 19: K1 with a gradient")
+    log(card_line())
+    vjp = run_vjp(device)
     k1_by_phase = {
         "4": launches,
         "9": sum(r["launches"] for r in titanic["served"].values()),
@@ -4491,7 +4779,8 @@ def main(argv=None) -> int:
         "14": sum(r["launches"] for r in dropin["served"].values()),
         "15": experiments["artifact"]["k1_launches"],
         "16": precision["served"]["launches"],
-        "17": parallel["k1_launches"]}
+        "17": parallel["k1_launches"],
+        "19": vjp["k1_launches"]}
     k2_by_phase = {
         "6": runs["Adam8bit"]["launches"],
         "12": sum(resume["resume"][kind]["k2_launches"]
@@ -4553,6 +4842,12 @@ def main(argv=None) -> int:
             "max_abs_err", "batch", "ms", "plain_ms", "bound_ms",
             "bound_by")},
         "parallel": parallel["serving"],
+        "vjp": {name: {k: vjp[name][k] for k in (
+            "launches", "launches_per_call", "fwd_rel_err",
+            "grad_leaf_rel_err", "param_max_diff", "fwd_plain_ms",
+            "fwd_k1_ms", "fwd_k1_small_tiles_ms", "train_plain_ms",
+            "train_k1_vjp_ms", "fwd_bound_ms", "fwd_bound_by",
+            "train_bound_ms", "train_bound_by")} for name in VJP_CONFIGS},
     }
     step = adam["times"]["mimic_step"]
     adam_entry = {
@@ -4626,6 +4921,7 @@ def main(argv=None) -> int:
     log("precision: " + json.dumps(precision))
     log("parallel: " + json.dumps(parallel))
     log("parallel_encoders: " + json.dumps(encoders))
+    log("vjp: " + json.dumps(vjp))
     log(json.dumps({"kernels": [entry, adam_entry]}))
     log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
     log(card)

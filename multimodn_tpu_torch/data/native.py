@@ -1,6 +1,8 @@
 """ctypes bridge to the repository's framework-free C++ data sources,
-``native/csv.cpp`` (the bounded-memory numeric CSV reader) and
-``native/packer.cpp``, for the disk-backed loaders (``data/disk.py``).
+``native/csv.cpp`` (the numeric CSV reader: whole files, and the
+bounded-memory row reads) and ``native/packer.cpp``, for the MIMIC cache
+files (``data/table.py::read_numeric_csv``) and the disk-backed loaders
+(``data/disk.py``).
 
 The library is built from those sources with ``g++`` at first use into
 ``<repo>/build/native/`` (listed in ``.gitignore``), named by a hash of the
@@ -9,7 +11,8 @@ under an exclusive ``fcntl`` lock, writes a temporary file and moves it into
 place with ``os.replace``, so processes that build at once never load a
 half-written library. Nothing falls back: a missing compiler or a failed
 build raises with the compiler's output, and a file the reader cannot take
-raises with the reader's reason.
+raises with the reader's reason; only ``read_csv_f64`` returns None for
+the files a general CSV parser must read instead.
 
 ``native/csv.cpp`` seeks through ``long``, which is 64-bit on the LP64
 hosts this package runs on (x86-64 and aarch64 Linux), so offsets past
@@ -37,7 +40,7 @@ BUILD_DIR = os.path.join(REPO, "build", "native")
 CXX = "g++"
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
-# csv_index / csv_read_*_f64 return codes (native/csv.cpp).
+# csv_dims / csv_index / csv_read_*_f64 return codes (native/csv.cpp).
 _REASONS = {1: "the file cannot be read", 2: "it holds a quoted field",
             3: "its rows have different numbers of fields",
             4: "a field does not parse as a number (strict=True; "
@@ -107,6 +110,11 @@ def get_lib() -> ctypes.CDLL:
             lib.csv_read_rows_f64.argtypes = [ctypes.c_char_p, i64p, i64,
                                               i64, f64p, i64]
             lib.csv_read_rows_f64.restype = i64
+            lib.csv_dims.argtypes = [ctypes.c_char_p, i64p, i64p, i64p]
+            lib.csv_dims.restype = i64
+            lib.csv_read_f64.argtypes = [ctypes.c_char_p, f64p, i64, i64,
+                                         ctypes.c_char_p, i64, i64]
+            lib.csv_read_f64.restype = i64
             _lib = lib
     return _lib
 
@@ -159,3 +167,43 @@ def csv_read_rows(path: str, spans: np.ndarray, n_cols: int,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), int(strict)),
         "a row read", path)
     return out
+
+
+# What read_csv_f64 leaves to a general parser: a quoted field, ragged
+# rows, a field that is not a number.
+_NOT_NUMERIC = (2, 3, 4)
+
+
+def read_csv_f64(path: str, strict: bool = True):
+    """A numeric CSV file with one header row, read whole in one pass
+    (``csv_dims``, then ``csv_read_f64``): ``(matrix (n, f) float64,
+    column names)``. Empty, ``NA``, ``na``, ``NaN``, ``nan``, ``None`` and
+    ``null`` fields read as NaN; a field of at most 15 significant digits
+    parses exactly, a longer one through the C library's ``strtod``, so
+    every value is correctly rounded; integers up to 2**53 stay exact.
+
+    Returns None where the file needs a general parser: a quoted field,
+    ragged rows, or (under ``strict``) a field that is not a number. Any
+    other failure raises."""
+    lib = get_lib()
+    i64 = ctypes.c_int64
+    n_rows, n_cols, hlen = i64(0), i64(0), i64(0)
+    rc = lib.csv_dims(path.encode(), ctypes.byref(n_rows),
+                      ctypes.byref(n_cols), ctypes.byref(hlen))
+    if rc in _NOT_NUMERIC:
+        return None
+    _check(rc, "a read", path)
+    out = np.empty((n_rows.value, n_cols.value), np.float64)
+    header = ctypes.create_string_buffer(hlen.value + 2)
+    rc = lib.csv_read_f64(
+        path.encode(), out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        n_rows.value, n_cols.value, header, hlen.value + 2, int(strict))
+    if rc in _NOT_NUMERIC:
+        return None
+    _check(rc, "a read", path)
+    columns = [c.strip() for c in header.value.decode("utf-8").split(",")]
+    if len(columns) != n_cols.value:
+        raise ValueError(f"native CSV reader, a read of {path}: the header "
+                         f"holds {len(columns)} names for {n_cols.value} "
+                         f"columns")
+    return out, columns

@@ -22,6 +22,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from multimodn_tpu_torch.data import native
+
 # pandas' default na_values.
 NA_STRINGS = frozenset([
     "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
@@ -153,11 +155,31 @@ def read_csv(path: str, on_bad_lines: str = "error") -> Dict[str, np.ndarray]:
 _NUMERIC_CACHE: Dict[tuple, Tuple[List[str], np.ndarray]] = {}
 
 
+def _parse_numeric(path: str) -> Tuple[np.ndarray, List[str]]:
+    """``((n_rows, n_columns) float64, columns)`` of an all-numeric CSV file
+    through the Python parser, as ``native.read_csv_f64`` returns them:
+    pandas' NaN spellings read as NaN."""
+    header, rows = read_rows(path)
+    try:
+        values = np.array(rows, dtype=np.float64)
+    except ValueError:
+        values = np.array([[float("nan") if t in NA_STRINGS else float(t)
+                            for t in row] for row in rows], dtype=np.float64)
+    return values.reshape(len(rows), len(header)), header
+
+
 def read_numeric_csv(path: str) -> Tuple[List[str], np.ndarray]:
     """``(columns, values)`` of an all-numeric CSV file: ``values`` is a
     read-only float64 array of shape ``(n_columns, n_rows)`` (one row per
     column, the layout pandas keeps a float frame in). Empty fields and
     pandas' NaN spellings read as NaN.
+
+    The file goes through the native reader (``native.read_csv_f64``, as
+    the JAX package reads its cache files), which also reads ``na`` as NaN;
+    where that reader leaves the file to a general parser (a quoted field,
+    ragged rows, a field such as ``N/A`` that is not a number to it), the
+    Python parser reads it. The two give the same bits on the files
+    ``write_csv`` writes: both round every field correctly.
 
     The parse is kept per file (path, size and modification time), so the
     many datasets a pipeline builds from one cache file parse it once."""
@@ -166,13 +188,8 @@ def read_numeric_csv(path: str) -> Tuple[List[str], np.ndarray]:
     hit = _NUMERIC_CACHE.get(key)
     if hit is not None:
         return hit
-    header, rows = read_rows(path)
-    try:
-        values = np.array(rows, dtype=np.float64)
-    except ValueError:
-        values = np.array([[float("nan") if t in NA_STRINGS else float(t)
-                            for t in row] for row in rows], dtype=np.float64)
-    values = np.ascontiguousarray(values.reshape(len(rows), len(header)).T)
+    values, header = native.read_csv_f64(path) or _parse_numeric(path)
+    values = np.ascontiguousarray(values.T)
     values.flags.writeable = False
     if len(_NUMERIC_CACHE) >= 8:
         _NUMERIC_CACHE.pop(next(iter(_NUMERIC_CACHE)))

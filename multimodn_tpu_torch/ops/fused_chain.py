@@ -18,7 +18,12 @@ tile, with the state-path weights in shared memory. This module holds:
 - ``fused_chain_forward``: the wrapper. CPU tensors take the plain version;
   CUDA tensors launch the kernels or raise, with no fallback.
   ``FUSED_CHAIN.launches`` counts the launches (``ChainSpec.launches`` per
-  call).
+  call);
+- the JAX module's three builders, each returning ``forward(params, data,
+  valid, init_row) -> (states, outputs)``: ``make_xla_chain_forward`` (the
+  plain version), ``make_fused_chain_forward`` (the wrapper) and
+  ``make_fused_chain_vjp`` (the wrapper's forward with the plain chain's
+  gradient, so that K1 can sit inside a loss that is differentiated).
 
 Supported module set, as in the TPU kernel: MLP-family encoders
 (``MLPEncoder`` last-layer concat, ``MIMICMLPEncoder`` first-layer concat,
@@ -540,3 +545,96 @@ def fused_chain_forward(spec: ChainSpec, params: dict, data, valid,
     layers = spec.layer_params(params)
     _check_inputs(spec, layers, data, valid, init_row)
     return FUSED_CHAIN.launch(spec, layers, data, valid, init_row)
+
+
+def _chain_forward(fn, encoders, decoders, state_size: int):
+    spec = ChainSpec(encoders, decoders, state_size)
+
+    def forward(params, data, valid, init_row):
+        return fn(spec, params, data, valid, init_row)
+
+    return forward
+
+
+def make_xla_chain_forward(encoders, decoders, state_size: int):
+    """``forward(params, data, valid, init_row) -> (states (E+1, B, S),
+    outputs list of (E+1, B, C_d))`` in plain PyTorch ops: the JAX module's
+    function of this name, the backward of ``make_fused_chain_vjp`` and the
+    baseline it is timed against. Takes the kernel's module set."""
+    return _chain_forward(fused_chain_forward_ref, encoders, decoders,
+                          state_size)
+
+
+def make_fused_chain_forward(encoders, decoders, state_size: int):
+    """The same function through ``fused_chain_forward``: K1's two stages
+    on a CUDA device, the plain version on the CPU. The JAX builder's
+    ``batch_tile`` and ``interpret`` have no counterpart here: Stage B picks
+    its own tile from the batch, and the kernel has no interpret mode."""
+    return _chain_forward(fused_chain_forward, encoders, decoders,
+                          state_size)
+
+
+def _chain_inputs(spec: ChainSpec, inputs):
+    """``(params, data, valid, init_row)`` from the flat inputs of
+    ``_FusedChainVJP``: every dense layer's ``w`` and ``b`` in
+    ``ChainSpec.layer_params`` order, the data, ``valid``, ``init_row``."""
+    n = 2 * len(spec.layers)
+    it = iter(inputs[:n])
+    modules = [{"layers": [{"w": next(it), "b": next(it)}
+                           for _ in range(p[2])]} for p in spec.enc_plans]
+    modules += [{"layers": [{"w": next(it), "b": next(it)}
+                            for _ in range(p[3])]} for p in spec.dec_plans]
+    E = len(spec.encoders)
+    params = {"encoders": modules[:E], "decoders": modules[E:]}
+    return params, inputs[n:-2], inputs[-2], inputs[-1]
+
+
+class _FusedChainVJP(torch.autograd.Function):
+    """K1's forward; the backward differentiates the plain chain re-run on
+    the saved inputs (JAX: ``jax.vjp`` of ``make_xla_chain_forward``)."""
+
+    @staticmethod
+    def forward(ctx, spec, *inputs):
+        states, outs = fused_chain_forward(spec, *_chain_inputs(spec, inputs))
+        # The residuals are the inputs, as in JAX: no activation is kept.
+        ctx.save_for_backward(*inputs)
+        ctx.spec = spec
+        return (states, *outs)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *cotangents):
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n) for t, n in
+                      zip(ctx.saved_tensors, ctx.needs_input_grad[1:])]
+            states, outs = fused_chain_forward_ref(
+                ctx.spec, *_chain_inputs(ctx.spec, inputs))
+            wrt = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(
+                [states, *outs], wrt, cotangents, allow_unused=True))
+        return (None, *[next(grads) if t.requires_grad else None
+                        for t in inputs])
+
+
+def make_fused_chain_vjp(encoders, decoders, state_size: int):
+    """Trainable K1 (JAX ``make_fused_chain_vjp``): ``forward(params, data,
+    valid, init_row) -> (states, outputs)`` whose forward is
+    ``fused_chain_forward`` (K1 on a CUDA device; it raises where K1 would)
+    and whose backward re-runs the plain chain on the saved inputs and
+    differentiates it. The residuals are the inputs alone: the backward
+    redoes the forward's products instead of keeping activations.
+
+    ``params`` holds ``"encoders"`` and ``"decoders"`` (other keys are not
+    read); gradients reach every dense layer's ``w`` and ``b``, the data
+    and ``init_row``, and none reaches ``valid``. The backward is plain
+    PyTorch, as JAX's is plain XLA outside the Pallas kernel. Training
+    through ``MultiModN`` differentiates the plain chain, as the JAX
+    package's does; this is the kernel's trainable form at the ops level."""
+    spec = ChainSpec(encoders, decoders, state_size)
+
+    def forward(params, data, valid, init_row):
+        leaves = [t for layer in spec.layer_params(params) for t in layer]
+        out = _FusedChainVJP.apply(spec, *leaves, *data, valid, init_row)
+        return out[0], list(out[1:])
+
+    return forward

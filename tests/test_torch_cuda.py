@@ -11,7 +11,9 @@ the port's own, and their ``F.relu`` model served through K1; an
 ``Adam8bit`` seed sweep through K2 bit-equal to each seed's ``fit_best``,
 and an ahead-of-time artifact on the card against K1; K2 on the 102 leaves
 of a ResNet-18, bf16 and fp16 GEMMs against the float form, and one step of
-a bf16 MIMIC model and of a ResNet model on the card against the CPU.
+a bf16 MIMIC model and of a ResNet model on the card against the CPU; K1
+with a gradient (``make_fused_chain_vjp``) at ``bench_pallas.py``'s two
+shapes against autograd through the plain chain.
 
 Every test here carries the ``cuda`` marker and skips without a GPU. The
 file imports neither JAX nor the JAX package, so it runs on a GPU machine
@@ -34,7 +36,7 @@ import torch
 from multimodn_tpu_torch import SGD, Adam, Adam8bit, AdamW, MultiModN
 from multimodn_tpu_torch import decoders as tdec
 from multimodn_tpu_torch import encoders as tenc
-from multimodn_tpu_torch.core.tree import tree_leaves
+from multimodn_tpu_torch.core.tree import tree_leaves, tree_map
 from multimodn_tpu_torch.data import ArrayLoader, PartitionDataset
 from multimodn_tpu_torch.ops import fused_adam as fa
 from multimodn_tpu_torch.ops import fused_chain as fc
@@ -226,6 +228,58 @@ def test_wrapper_rejects_bad_inputs_on_cuda(cuda):
     with pytest.raises(ValueError, match="is on"):
         fc.fused_chain_forward(spec, model.params, [data[0].cpu(), data[1]],
                                valid, init)
+
+
+# bench_pallas.py's two configurations (bench_pallas.py:40-45): widths,
+# state, hidden widths, batch.
+BENCH_PALLAS = {"shipped": ((10, 1024, 768, 99), 50, (32, 32), 1024),
+                "scaled": ((1024,) * 4, 256, (1024, 1024), 512)}
+
+
+def _vjp_grads(fwd, model, data, valid, init):
+    params = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                      {"encoders": model.params["encoders"],
+                       "decoders": model.params["decoders"]})
+    xs = [d.clone().requires_grad_(True) for d in data]
+    row = init.detach().clone().requires_grad_(True)
+    states, outs = fwd(params, xs, valid, row)
+    loss = (states ** 2).mean() + sum(o.mean() for o in outs)
+    return (states, outs), loss, torch.autograd.grad(
+        loss, tree_leaves(params) + xs + [row])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", sorted(BENCH_PALLAS))
+def test_vjp_on_cuda_matches_the_plain_chain(cuda, config):
+    """K1 with a gradient at bench_pallas.py's shapes, ~30% of valid cells
+    0: its forward within ATOL of the plain chain's relative to the largest
+    value, the loss within 1e-5 relative, and every gradient (layers, data,
+    init row) within 1e-4 of its leaf's largest magnitude. Both backwards
+    are the same plain ops; they differ only through the loss's cotangent,
+    read from K1's forward on one side."""
+    widths, S, hidden, B = BENCH_PALLAS[config]
+    model = MultiModN(S, [tenc.MIMICMLPEncoder(S, w, hidden, dropout=0.0)
+                          for w in widths],
+                      [tdec.MLPDecoder(S, hidden, 2)], 1.0, 0.0, seed=0,
+                      device=cuda)
+    spec = fc.ChainSpec(model.encoders, model.decoders, S)
+    data, valid, init = _chain_inputs(model, B, cuda)
+    args = (model.encoders, model.decoders, S)
+    before = fc.FUSED_CHAIN.launches
+    got, loss, grads = _vjp_grads(fc.make_fused_chain_vjp(*args), model,
+                                  data, valid, init)
+    torch.cuda.synchronize()
+    assert fc.FUSED_CHAIN.launches == before + spec.launches
+    want, want_loss, want_grads = _vjp_grads(
+        fc.make_xla_chain_forward(*args), model, data, valid, init)
+    pairs = list(zip([got[0], *got[1]], [want[0], *want[1]]))
+    scale = max(w.abs().max().item() for _g, w in pairs)
+    for g, w in pairs:
+        torch.testing.assert_close(g, w, rtol=0, atol=ATOL * max(scale, 1))
+    torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=0)
+    for g, w in zip(grads, want_grads):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-4 * w.abs().max().item())
 
 
 LR, B1, B2, EPS = 1e-3, 0.9, 0.999, 1e-8
