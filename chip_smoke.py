@@ -11,12 +11,14 @@
     python3 chip_smoke.py --precision-only
     python3 chip_smoke.py --parallel-only
     python3 chip_smoke.py --vjp-only
+    python3 chip_smoke.py --chain-only
 
 The first form is the smoke run; the second times phase 8 alone at another
 data size and depth, the third with every fold's batches streamed; the
 fourth runs the MNAR protocol grid alone, the fifth phase 13 alone, the
 sixth phase 14 alone, the seventh phase 15 alone, the eighth phase 16
-alone, the ninth phases 17 and 18 alone, the tenth phase 19 alone.
+alone, the ninth phases 17 and 18 alone, the tenth phase 19 alone, the
+eleventh phase 20 at its full set (``CHAIN_CONFIGS``).
 Phases, each fatal on failure:
 
 1. the card's name and power limit, torch and CUDA versions; TF32 off;
@@ -262,16 +264,26 @@ Phases, each fatal on failure:
    per step and K2 never; ``fwd_plain_ms``, ``fwd_k1_ms`` (and on 16-row
    tiles), ``train_plain_ms`` and ``train_k1_vjp_ms`` (CUDA events), each
    stage's device time, and the forward's and the training step's bounds;
-20. the earlier designs' times from PERF.md on a line of their own, the
+20. K1 over the TPU kernel's whole domain through ``fused_forward`` (10%
+   of the modality rows NaN): a 33-encoder featurewise chain (Stage B's
+   ring) and the MIMIC widths at hidden (2048, 2048) (the layered
+   variant) at B = 16; ``--chain-only`` runs the 1901-encoder featurewise
+   chain at B = 1 and 64 and the wide model at B = 16 and 4096. Each
+   within 1e-4 of the plain chain's largest value, with the plan's K1
+   launches per call, as many as the same family at E = 4; K1's ms (CUDA
+   events) and each stage's, the plain chain's ms and the bound, and the
+   host-clock request ms of ``fused_forward`` and of ``predict_proba``
+   on the same rows;
+21. the earlier designs' times from PERF.md on a line of their own, the
    ``mnar``, ``transformer``, ``resume``, ``orders``, ``dropin``,
-   ``experiments``, ``precision``, ``parallel``, ``parallel_encoders`` and
-   ``vjp`` lines, one ``{"kernels": [...]}`` line of this run's numbers
-   (launches summed over every path that ran the kernel, by phase in
-   ``launches_by_phase``; K1's with ``titanic``, ``mnar``, ``resumed``,
-   ``orders``, ``dropin``, ``experiments``, ``precision``, ``parallel``
-   and ``vjp`` blocks, K2's with ``resume``, ``orders``, ``experiments``,
-   ``precision``, ``parallel`` and ``parallel_encoders`` blocks), the
-   script's wall time, the card's line, and last the ``{"ok": true, ...}``
+   ``experiments``, ``precision``, ``parallel``, ``parallel_encoders``,
+   ``vjp`` and ``chain`` lines, one ``{"kernels": [...]}`` line of this
+   run's numbers (launches summed over every path that ran the kernel, by
+   phase in ``launches_by_phase``; K1's with ``titanic``, ``mnar``,
+   ``resumed``, ``orders``, ``dropin``, ``experiments``, ``precision``,
+   ``parallel``, ``vjp`` and ``chain`` blocks, K2's with ``resume``,
+   ``orders``, ``experiments``, ``precision``, ``parallel`` and
+   ``parallel_encoders`` blocks), the script's wall time, the card's line, and last the ``{"ok": true, ...}``
    line.
 
 ``--mnar-only`` runs phase 1 and the MNAR protocol grid alone at the
@@ -313,9 +325,9 @@ from multimodn_tpu_torch.encoders import MIMICMLPEncoder, MLPEncoder, \
 from multimodn_tpu_torch.ops import fused_adam as fa
 from multimodn_tpu_torch.ops.build import library_path
 from multimodn_tpu_torch.ops.fused_adam import FUSED_ADAM
-from multimodn_tpu_torch.ops.fused_chain import FUSED_CHAIN, ChainSpec, \
-    fused_chain_forward, fused_chain_forward_ref, make_fused_chain_forward, \
-    make_fused_chain_vjp, make_xla_chain_forward
+from multimodn_tpu_torch.ops.fused_chain import FUSED_CHAIN, VARIANTS, \
+    ChainSpec, fused_chain_forward, fused_chain_forward_ref, \
+    make_fused_chain_forward, make_fused_chain_vjp, make_xla_chain_forward
 
 START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -494,7 +506,8 @@ def stage_times(fn, calls=20):
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        for kernel in ("stage_a_gemm", "chain_kernel", "row_softmax"):
+        for kernel in ("stage_a_gemm", "chain_kernel", "segment_softmax",
+                       "layered_kernel"):
             if kernel in e.key and e.self_device_time_total > 0:
                 out[kernel] = out.get(kernel, 0.0) + \
                     e.self_device_time_total / 1e3 / calls
@@ -511,6 +524,7 @@ def check_kernel(name, model, batches, gen):
     records = {}
     for B in batches:
         data, valid = kernel_inputs(spec, B, gen)
+        packed = spec.pack_data(list(data))
         got = fused_chain_forward(spec, params, data, valid, init_row)
         want = fused_chain_forward_ref(spec, params, data, valid, init_row)
         torch.cuda.synchronize()
@@ -519,7 +533,7 @@ def check_kernel(name, model, batches, gen):
                      for t in [got[0], *got[1]])
 
         def kernel(large_tiles=True):
-            FUSED_CHAIN.launch(spec, layers, data, valid, init_row,
+            FUSED_CHAIN.launch(spec, layers, packed, valid, init_row,
                                large_tiles=large_tiles)
 
         ms, launches = time_counted(kernel, FUSED_CHAIN)
@@ -528,12 +542,15 @@ def check_kernel(name, model, batches, gen):
         bound_ms, bound_by, flops, nbytes = bound(spec, B)
         # Each Stage A launch's GEMM blocks and the copy blocks of the
         # state-path weights, as the wrapper launches them.
-        stage_a_blocks = [blocks for _i, _r, blocks in
+        stage_a_blocks = [level[2] for level in
                           spec.stage_a_plan(B, n_sm)[0]]
-        copy_blocks = [blocks for _c, _r, blocks in spec.copy_groups]
+        copy_blocks = spec.copy_blocks
+        variant = VARIANTS[FUSED_CHAIN.stage_b_config(
+            spec, B, torch.device("cuda"))[0]]
         stages = stage_times(kernel) if B in (SERVING_BATCH, 65536) \
             else None
         records[B] = {"max_abs_err": err, "ms": ms, "launches": launches,
+                      "stage_b": variant,
                       "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "bound_by": bound_by, "flops": flops, "bytes": nbytes,
                       "stage_ms": stages}
@@ -545,7 +562,7 @@ def check_kernel(name, model, batches, gen):
             f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}; "
             f"{flops:.4g} FLOP, {nbytes:.4g} B), {bound_ms / ms:.2%} of "
             f"bound; Stage A GEMM blocks per launch {stage_a_blocks}, copy "
-            f"blocks {copy_blocks}"
+            f"blocks {copy_blocks}, Stage B {variant}"
             + (f"; device ms per kernel {json.dumps(stages)}"
                if stages is not None else "")
             + (f"; Stage B on 16-row tiles: kernel "
@@ -561,7 +578,7 @@ def check_kernel(name, model, batches, gen):
         if launches != spec.launches:
             raise AssertionError(f"{name} B={B}: {launches} launches per "
                                  f"call, the plan gives {spec.launches}")
-        del data, valid, got, want
+        del data, packed, valid, got, want
     return records
 
 
@@ -1423,17 +1440,14 @@ def serve_trained(name, model, requests, device):
     if not (err_chain <= TOL and err_session <= TOL):
         raise AssertionError(f"{name}: served answers disagree with the "
                              f"plain chain ({err_chain}, {err_session})")
-    data = model._to_device(requests[0])
-    valid = torch.stack([~torch.isnan(m).any(dim=1) for m in data],
-                        dim=1).float()
-    data = tuple(torch.nan_to_num(m).contiguous() for m in data)
+    packed, valid = model._packed_request(requests[0], spec)
     init_row = model.params["init_state"]["value"][0].contiguous()
     layers = spec.layer_params(model.params)
     ms, per_call = time_counted(lambda: FUSED_CHAIN.launch(
-        spec, layers, data, valid, init_row), FUSED_CHAIN)
+        spec, layers, packed, valid, init_row), FUSED_CHAIN)
     plain_ms = time_ms(lambda: fused_chain_forward_ref(
-        spec, model.params, data, valid, init_row))
-    bound_ms, bound_by, flops, nbytes = bound(spec, data[0].shape[0])
+        spec, model.params, packed, valid, init_row))
+    bound_ms, bound_by, flops, nbytes = bound(spec, packed.shape[0])
     if per_call != spec.launches:
         raise AssertionError(f"{name}: {per_call} launches per timed call, "
                              f"the plan gives {spec.launches}")
@@ -1441,7 +1455,7 @@ def serve_trained(name, model, requests, device):
             "rows": sum(x[0].shape[0] for x in requests),
             "nan_cells": nan_cells, "launches": launches,
             "launches_per_request": spec.launches, "max_abs_err": err_chain,
-            "session_max_abs_err": err_session, "batch": data[0].shape[0],
+            "session_max_abs_err": err_session, "batch": packed.shape[0],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "flops": flops, "bytes": nbytes}
 
@@ -4492,10 +4506,12 @@ def run_vjp_config(name, cfg, device, gen):
                                              init))
         fwd_k1_ms, per_call = time_counted(
             lambda: k1(model.params, data, valid, init), FUSED_CHAIN)
+        packed = spec.pack_data(list(data))
         small_tiles_ms = time_ms(lambda: FUSED_CHAIN.launch(
-            spec, layers, data, valid, init, large_tiles=False))
+            spec, layers, packed, valid, init, large_tiles=False))
         n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-        stage_a_blocks = [b for _i, _r, b in spec.stage_a_plan(B, n_sm)[0]]
+        stage_a_blocks = [level[2] for level in
+                          spec.stage_a_plan(B, n_sm)[0]]
         stages = stage_times(lambda: k1(model.params, data, valid, init))
 
     def train_ms(fwd):
@@ -4544,6 +4560,155 @@ def run_vjp(device):
     log(f"  phase 19 [{card_line()}]")
     if failures:
         raise AssertionError("phase 19: " + "; ".join(failures))
+    return out
+
+
+# Phase 20: K1 over the TPU kernel's whole domain, served through
+# fused_forward. The featurewise MIMIC chain (RESULTS.md:213-220: one
+# MLPFeatureEncoder(50, 32) per feature, 1901 of them, and an
+# MLPDecoder(50, (32, 32), 2)) and the MIMIC widths at hidden (2048, 2048)
+# with the shipped decoders, seeded weights, 10% of the modality rows
+# holding a NaN. --chain-only runs the full set; the main call runs a
+# 33-encoder featurewise chain and the wide model at B = 16, so that every
+# Stage B variant is checked there.
+CHAIN_CONFIGS = {
+    "featurewise": {"encoders": FEATUREWISE_E, "batches": (1, 64)},
+    "wide": {"hidden": 2048, "batches": (16, 4096)},
+}
+MAIN_CHAIN_CONFIGS = {
+    "featurewise_33": {"encoders": 33, "batches": (16,)},
+    "wide": {"hidden": 2048, "batches": (16,)},
+}
+CHAIN_MISSING = 0.1
+CHAIN_REQUESTS = 3        # warm requests timed per path on the host clock
+
+
+def chain_model(cfg, device, n_encoders=None):
+    """Phase 20's model: the featurewise chain at ``cfg["encoders"]`` (or
+    ``n_encoders``) features, or the MIMIC widths at ``cfg["hidden"]``."""
+    if "encoders" in cfg:
+        E = cfg["encoders"] if n_encoders is None else n_encoders
+        return MultiModN(
+            MIMIC_STATE, [MLPFeatureEncoder(MIMIC_STATE, FEATUREWISE_HIDDEN)
+                          for _ in range(E)],
+            [MLPDecoder(MIMIC_STATE, (MIMIC_HIDDEN,) * 2, 2)], 1.0, 0.0,
+            seed=20, device=device)
+    return MultiModN(
+        MIMIC_STATE, [MIMICMLPEncoder(MIMIC_STATE, w, (cfg["hidden"],) * 2,
+                                      dropout=0.0) for w in MIMIC_WIDTHS],
+        [MLPDecoder(MIMIC_STATE, (MIMIC_HIDDEN,) * 2, 2)
+         for _ in range(MIMIC_TARGETS)], 1.0, 0.0, seed=20, device=device)
+
+
+def chain_request(model, B, seed):
+    """B rows per modality; in 10% of each modality's rows a NaN, so that
+    the row's state is kept for that step."""
+    rng = np.random.default_rng(seed)
+    x = [rng.normal(size=(B, e.n_features)).astype(np.float32)
+         for e in model.encoders]
+    for m in x:
+        m[rng.random(B) < CHAIN_MISSING, 0] = np.nan
+    return x
+
+
+def host_ms(fn, reps=CHAIN_REQUESTS) -> float:
+    """Median host-clock ms of ``fn`` to its answer on the device."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def run_chain_config(name, cfg, device):
+    model = chain_model(cfg, device)
+    spec = ChainSpec(model.encoders, model.decoders, model.state_size)
+    E = len(model.encoders)
+    # The launches per call of the same family at E = 4.
+    small = chain_model(cfg, device, 4) if "encoders" in cfg else model
+    torch.cuda.synchronize()
+    FUSED_CHAIN.launches = 0
+    small.fused_forward(chain_request(small, 2, 0))
+    torch.cuda.synchronize()
+    e4_launches = FUSED_CHAIN.launches
+    init = model.params["init_state"]["value"][0].contiguous()
+    layers = spec.layer_params(model.params)
+    long_chain = E > 100
+    out, failures = {}, []
+    for B in cfg["batches"]:
+        x = chain_request(model, B, seed=B)
+        # The main path: one request through fused_forward, counted.
+        torch.cuda.synchronize()
+        FUSED_CHAIN.launches = 0
+        states, outs = model.fused_forward(x)
+        torch.cuda.synchronize()
+        launches = FUSED_CHAIN.launches
+        packed, valid = model._packed_request(x, spec)
+        want = fused_chain_forward_ref(spec, model.params, packed, valid,
+                                       init)
+        torch.cuda.synchronize()
+        err = max_err((states, outs), want)
+        scale = max(t.abs().max().item() for t in [want[0], *want[1]])
+        rel = err / max(scale, 1.0)
+        finite = all(torch.isfinite(t).all().item()
+                     for t in [states, *outs])
+        variant, smem, chunk, stages = FUSED_CHAIN.stage_b_config(
+            spec, B, device)
+        del want
+
+        def kernel():
+            FUSED_CHAIN.launch(spec, layers, packed, valid, init)
+
+        reps = (2, 3) if long_chain else (TIMED_REPS, TIMED_GROUPS)
+        ms = time_ms(kernel)
+        plain_ms = time_ms(lambda: fused_chain_forward_ref(
+            spec, model.params, packed, valid, init), *reps)
+        stage_ms = stage_times(kernel, calls=5)
+        bound_ms, bound_by, flops, nbytes = bound(spec, B)
+        request_ms = host_ms(lambda: model.fused_forward(x))
+        proba_ms = host_ms(lambda: model.predict_proba(x), 2 if long_chain
+                           else CHAIN_REQUESTS)
+        r = {"encoders": E, "batch": B, "stage_b": VARIANTS[variant],
+             "stage_b_shared_bytes": smem, "chunk": chunk,
+             "ring_stages": stages, "valid_share": valid.mean().item(),
+             "max_abs_err": err, "rel_err": rel, "tolerance": TOL,
+             "launches": launches, "launches_per_call": launches,
+             "launches_at_e4": e4_launches, "ms": ms, "plain_ms": plain_ms,
+             "stage_ms": stage_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+             "fused_forward_request_ms": request_ms,
+             "predict_proba_request_ms": proba_ms,
+             "region_floats": spec.region_len,
+             "plan_ints": len(spec.plan)}
+        log(f"  {name} B={B}: " + json.dumps(r))
+        out[str(B)] = r
+        if not finite or not rel <= TOL:
+            failures.append(f"{name} B={B}: K1 {err:.3e} from the plain "
+                            f"chain ({rel:.3e} of the largest value, tol "
+                            f"{TOL:g}, finite={finite})")
+        if launches != spec.launches or launches != e4_launches:
+            failures.append(f"{name} B={B}: {launches} K1 launches per "
+                            f"call, the plan {spec.launches}, at E = 4 "
+                            f"{e4_launches}")
+        del states, outs, packed, valid
+    return out, failures
+
+
+def run_chain(device, configs=CHAIN_CONFIGS):
+    """Phase 20: the featurewise chain and the wide MIMIC model through
+    ``fused_forward``."""
+    log(f"tolerance: {TOL:g} of the largest value ({TOL_REASON})")
+    out, failures = {}, []
+    for name, cfg in configs.items():
+        out[name], fails = run_chain_config(name, cfg, device)
+        failures += fails
+    out["k1_launches"] = sum(r["launches"] for c in configs
+                             for r in out[c].values())
+    log(f"  phase 20 [{card_line()}]")
+    if failures:
+        raise AssertionError("phase 20: " + "; ".join(failures))
     return out
 
 
@@ -4605,6 +4770,12 @@ def parse_args(argv=None):
                    help="run phases 1, 2 and 19 (K1 with a gradient at "
                         "bench_pallas.py's two configurations) only and end "
                         "with the vjp line (no ok line)")
+    p.add_argument("--chain-only", action="store_true",
+                   help="run phases 1, 2 and 20 (K1 over the whole domain: "
+                        "the 1901-encoder featurewise chain at B = 1 and "
+                        "64, the MIMIC widths at hidden 2048 at B = 16 and "
+                        "4096) only and end with the chain line (no ok "
+                        "line)")
     p.add_argument("--resume-child", nargs=2, metavar=("KIND", "DIR"),
                    help=argparse.SUPPRESS)
     return p.parse_args(argv)
@@ -4693,6 +4864,12 @@ def main(argv=None) -> int:
         log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
         log(card)
         return 0
+    if args.chain_only:
+        phase("phase 20: K1 over the whole domain")
+        log("chain: " + json.dumps(run_chain(device)))
+        log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
+        log(card)
+        return 0
     if args.precision_only:
         phase("phase 16: mixed precision and the ResNet image model")
         log("precision: " + json.dumps(run_precision(
@@ -4770,6 +4947,10 @@ def main(argv=None) -> int:
     phase("phase 19: K1 with a gradient")
     log(card_line())
     vjp = run_vjp(device)
+
+    phase("phase 20: K1 over the whole domain")
+    log(card_line())
+    chain = run_chain(device, MAIN_CHAIN_CONFIGS)
     k1_by_phase = {
         "4": launches,
         "9": sum(r["launches"] for r in titanic["served"].values()),
@@ -4780,7 +4961,8 @@ def main(argv=None) -> int:
         "15": experiments["artifact"]["k1_launches"],
         "16": precision["served"]["launches"],
         "17": parallel["k1_launches"],
-        "19": vjp["k1_launches"]}
+        "19": vjp["k1_launches"],
+        "20": chain["k1_launches"]}
     k2_by_phase = {
         "6": runs["Adam8bit"]["launches"],
         "12": sum(resume["resume"][kind]["k2_launches"]
@@ -4814,7 +4996,7 @@ def main(argv=None) -> int:
         "serving": serving,
         "by_batch": {str(B): {k: r[k] for k in (
             "max_abs_err", "ms", "launches", "plain_ms", "bound_ms",
-            "bound_by", "stage_ms", "small_tiles_ms") if k in r}
+            "bound_by", "stage_ms", "small_tiles_ms", "stage_b") if k in r}
                      for B, r in mimic.items()},
         "titanic": {label: {k: r[k] for k in (
             "pipeline", "requests", "launches", "launches_per_request",
@@ -4848,6 +5030,12 @@ def main(argv=None) -> int:
             "fwd_k1_ms", "fwd_k1_small_tiles_ms", "train_plain_ms",
             "train_k1_vjp_ms", "fwd_bound_ms", "fwd_bound_by",
             "train_bound_ms", "train_bound_by")} for name in VJP_CONFIGS},
+        "chain": {name: {B: {k: r[k] for k in (
+            "encoders", "stage_b", "launches", "launches_at_e4",
+            "max_abs_err", "rel_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "fused_forward_request_ms",
+            "predict_proba_request_ms")} for B, r in chain[name].items()}
+            for name in MAIN_CHAIN_CONFIGS},
     }
     step = adam["times"]["mimic_step"]
     adam_entry = {
@@ -4922,6 +5110,7 @@ def main(argv=None) -> int:
     log("parallel: " + json.dumps(parallel))
     log("parallel_encoders: " + json.dumps(encoders))
     log("vjp: " + json.dumps(vjp))
+    log("chain: " + json.dumps(chain))
     log(json.dumps({"kernels": [entry, adam_entry]}))
     log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
     log(card)

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import csv
 import os
+import warnings
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -168,6 +169,37 @@ def _parse_numeric(path: str) -> Tuple[np.ndarray, List[str]]:
     return values.reshape(len(rows), len(header)), header
 
 
+# Which reader parsed each cache file, by absolute path: "native", "python"
+# (a file the native reader leaves to a general parser) or "python: the
+# native library is unavailable (<reason>)". Read by the tests and by
+# chip_smoke.py's protocol phase.
+READERS: Dict[str, str] = {}
+
+
+def _read_numeric(path: str) -> Tuple[np.ndarray, List[str]]:
+    """The native reader, or the Python parser where the native reader
+    leaves the file to a general parser or where its library cannot be
+    built or loaded (no ``g++``, no writable ``build/native/``: the
+    ``OSError`` or ``RuntimeError`` that ``native.get_lib`` raises, as the
+    JAX package's ``data/mimic.py`` falls back on any failure). The slow
+    path is never silent: ``READERS`` records it, and a missing library
+    warns."""
+    key = os.path.abspath(path)
+    try:
+        native.get_lib()
+    except (OSError, RuntimeError) as exc:
+        reason = f"python: the native library is unavailable ({exc})"
+        if not any(r.startswith("python: the native") for r in
+                   READERS.values()):
+            warnings.warn(f"reading the MIMIC cache files with the Python "
+                          f"parser: {reason}", RuntimeWarning, stacklevel=3)
+        READERS[key] = reason
+        return _parse_numeric(path)
+    result = native.read_csv_f64(path)
+    READERS[key] = "python" if result is None else "native"
+    return _parse_numeric(path) if result is None else result
+
+
 def read_numeric_csv(path: str) -> Tuple[List[str], np.ndarray]:
     """``(columns, values)`` of an all-numeric CSV file: ``values`` is a
     read-only float64 array of shape ``(n_columns, n_rows)`` (one row per
@@ -177,8 +209,9 @@ def read_numeric_csv(path: str) -> Tuple[List[str], np.ndarray]:
     The file goes through the native reader (``native.read_csv_f64``, as
     the JAX package reads its cache files), which also reads ``na`` as NaN;
     where that reader leaves the file to a general parser (a quoted field,
-    ragged rows, a field such as ``N/A`` that is not a number to it), the
-    Python parser reads it. The two give the same bits on the files
+    ragged rows, a field such as ``N/A`` that is not a number to it), or
+    where its library cannot be built, the Python parser reads it
+    (``READERS`` says which ran). The two give the same bits on the files
     ``write_csv`` writes: both round every field correctly.
 
     The parse is kept per file (path, size and modification time), so the
@@ -188,7 +221,7 @@ def read_numeric_csv(path: str) -> Tuple[List[str], np.ndarray]:
     hit = _NUMERIC_CACHE.get(key)
     if hit is not None:
         return hit
-    values, header = native.read_csv_f64(path) or _parse_numeric(path)
+    values, header = _read_numeric(path)
     values = np.ascontiguousarray(values.T)
     values.flags.writeable = False
     if len(_NUMERIC_CACHE) >= 8:

@@ -636,18 +636,39 @@ class MultiModN:
         if self._chain_spec is None:
             self._chain_spec = ChainSpec(self.encoders, self.decoders,
                                          self.state_size)
-        data = self._to_device(x)
-        valid = torch.stack(
-            [~torch.isnan(m).flatten(1).any(dim=1) for m in data],
-            dim=1).float()
-        data = tuple(torch.nan_to_num(m).contiguous() for m in data)
+        packed, valid = self._packed_request(x, self._chain_spec)
         # One gather per call on a model-sharded mesh: the kernel reads
         # whole weights, packed for the launch in fused_chain_forward.
         params = self._whole_params()
         init_row = self.init_state.apply(
             params["init_state"], 1, 0)[0].contiguous()
-        return fused_chain_forward(self._chain_spec, params, data, valid,
+        return fused_chain_forward(self._chain_spec, params, packed, valid,
                                    init_row)
+
+    def _packed_request(self, x: Sequence, spec: ChainSpec):
+        """A request's modalities as the kernel reads them: packed into one
+        (B, ``spec.data_ld``) tensor on the model's device (one copy from
+        the host for host arrays) with NaNs zeroed, and the (B, E) validity
+        mask from one segmented reduction: modality e is valid for sample b
+        when its row holds no NaN (JAX ``model.py:1242-1245``)."""
+        if len(x) != len(spec.encoders):
+            raise ValueError(f"expected {len(spec.encoders)} modality "
+                             f"arrays, got {len(x)}")
+        if any(torch.is_tensor(m) for m in x):
+            packed = spec.pack_data([
+                torch.as_tensor(m, dtype=torch.float32, device=self.device)
+                .reshape(len(m), -1) for m in x])
+        else:
+            host = [np.asarray(m, np.float32) for m in x]
+            packed = torch.as_tensor(spec.pack_data(
+                [m.reshape(len(m), -1) for m in host]), device=self.device)
+        E = len(spec.encoders)
+        nan_counts = torch.zeros((packed.shape[0], E + 1),
+                                 device=packed.device).index_add_(
+            1, spec.segment_ids(packed.device), torch.isnan(packed).float())
+        valid = (nan_counts[:, :E] == 0).float()
+        # Out of place: a one-piece pack may be the caller's own buffer.
+        return torch.nan_to_num(packed), valid
 
     @torch.no_grad()
     def get_states(self, loader) -> List[np.ndarray]:

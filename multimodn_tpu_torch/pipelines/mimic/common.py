@@ -85,13 +85,28 @@ class MimicConfig:
     transformer_chunk: int = 64
 
 
+REPO_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..",
+                                         "..", ".."))
+
+
 def storage_root() -> str:
     """Root directory for pipeline artifacts (``nips/results`` CSVs, saved
-    models): ``MULTIMODN_STORAGE``, else the repository root, where the
-    published protocol CSVs live. The results files are append-only, so
-    tests and smoke runs set ``MULTIMODN_STORAGE`` to a scratch directory."""
-    return os.environ.get("MULTIMODN_STORAGE") or os.path.abspath(
-        os.path.join(os.path.dirname(__file__), "..", "..", ".."))
+    models): ``MULTIMODN_STORAGE``. Raises when the variable is unset or
+    names the repository root, whose ``nips/results/`` holds the JAX
+    package's protocol records (the results files are append-only). The
+    MNAR protocol's ``results_dir`` reads the same rule."""
+    storage = os.environ.get("MULTIMODN_STORAGE")
+    if not storage:
+        raise RuntimeError(
+            "the MIMIC pipelines write under $MULTIMODN_STORAGE (nips/"
+            "results, models); set MULTIMODN_STORAGE to a directory of its "
+            "own")
+    if os.path.realpath(storage) == os.path.realpath(REPO_ROOT):
+        raise RuntimeError(
+            f"MULTIMODN_STORAGE names the repository root ({storage}), whose "
+            "nips/results/ holds the JAX package's protocol records; set it "
+            "to a directory of its own")
+    return storage
 
 
 def _metric_scalars(metrics_tuple):

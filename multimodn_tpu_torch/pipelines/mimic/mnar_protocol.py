@@ -40,29 +40,21 @@ import numpy as np
 from multimodn_tpu_torch.data.table import write_csv
 from multimodn_tpu_torch.pipelines.mimic import \
     mimic_single_task_mnar_missingness_pipeline as mnar_pipeline
-from multimodn_tpu_torch.pipelines.mimic.common import MimicConfig
+# REPO_ROOT stays a name of this module: its tests point the storage rule
+# at it.
+from multimodn_tpu_torch.pipelines.mimic.common import REPO_ROOT, \
+    MimicConfig, storage_root  # noqa: F401
 
 MISS_PERCS = (0.0, 20.0, 40.0, 60.0, 80.0, 100.0)
 ROW_COLUMNS = ("model", "target", "fold", "both", "miss_perc", "test_auc")
 SUMMARY_COLUMNS = ("model", "both", "miss_perc", "mean", "std", "count")
-REPO_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..",
-                                         "..", ".."))
 
 
 def results_dir() -> str:
-    """``$MULTIMODN_STORAGE/nips/results``; raises when the variable is
-    unset or names the repository root."""
-    storage = os.environ.get("MULTIMODN_STORAGE")
-    if not storage:
-        raise RuntimeError(
-            "the MNAR protocol writes under $MULTIMODN_STORAGE/nips/results; "
-            "set MULTIMODN_STORAGE to a directory of its own")
-    if os.path.realpath(storage) == os.path.realpath(REPO_ROOT):
-        raise RuntimeError(
-            f"MULTIMODN_STORAGE names the repository root ({storage}), whose "
-            "nips/results/ holds the JAX package's protocol records; set it "
-            "to a directory of its own")
-    return os.path.join(storage, "nips", "results")
+    """``$MULTIMODN_STORAGE/nips/results``, by ``common.storage_root``'s
+    rule: raises when the variable is unset or names the repository
+    root."""
+    return os.path.join(storage_root(), "nips", "results")
 
 
 def variant_name(nan_skip: str, presence_penalty: float) -> str:

@@ -134,6 +134,117 @@ def test_kernel_matches_plain(cuda, case, B):
     _close(got, want)
 
 
+# The domain past the old kernel's caps (32 encoders, 32 decoders, a 640-int
+# plan, Stage B's shared memory): the featurewise MIMIC chain (1901
+# one-feature encoders; Stage B streams its region through the ring), 33
+# decoders, and the MIMIC widths at hidden 2048 (the layered variant).
+LONG_CASES = {
+    "featurewise_1901": (
+        50, lambda: [tenc.MLPFeatureEncoder(50, 32) for _ in range(1901)],
+        lambda: [tdec.MLPDecoder(50, (32, 32), 2)], (1, 37, 64)),
+    "decoders_33": (
+        8, lambda: [tenc.MIMICMLPEncoder(8, w, (6,), 0.0) for w in (3, 4)],
+        lambda: [tdec.MLPDecoder(8, (4,), 2) if d % 3 else
+                 tdec.ClassDecoder(8, 1 + d % 4, "softmax")
+                 for d in range(33)], (16, 1000)),
+    "wide_2048": (
+        50, lambda: [tenc.MIMICMLPEncoder(50, w, (2048, 2048), 0.0)
+                     for w in (10, 1024, 768, 99)],
+        lambda: [tdec.MLPDecoder(50, (32, 32), 2) for _ in range(2)],
+        (16, 4096)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,B", [(c, B) for c in sorted(LONG_CASES)
+                                    for B in LONG_CASES[c][3]])
+def test_kernel_matches_plain_past_the_old_caps(cuda, case, B):
+    """Within ATOL of the largest value (the long chain carries rounding
+    through 1901 steps), with the plan's launches, as many as at E = 4."""
+    S, make_enc, make_dec, _batches = LONG_CASES[case]
+    model = MultiModN(S, make_enc(), make_dec(), 1.0, 0.0, seed=6,
+                      device=cuda)
+    spec = fc.ChainSpec(model.encoders, model.decoders, model.state_size)
+    data, valid, init = _chain_inputs(model, B, cuda)
+    before = fc.FUSED_CHAIN.launches
+    got = fc.fused_chain_forward(spec, model.params, data, valid, init)
+    want = fc.fused_chain_forward_ref(spec, model.params, data, valid, init)
+    torch.cuda.synchronize()
+    assert fc.FUSED_CHAIN.launches == before + spec.launches
+    assert spec.launches == fc.ChainSpec(
+        model.encoders[:4], model.decoders, S).launches
+    scale = max(w.abs().max().item() for w in [want[0], *want[1]])
+    for g, w in zip([got[0], *got[1]], [want[0], *want[1]]):
+        torch.testing.assert_close(g, w, rtol=0, atol=ATOL * max(scale, 1))
+
+
+# The ring and layered variants on other module mixes: softmax and gelu
+# state-path layers (the ring's unfused last layer, the layered row pass
+# with and without the select), a last-concat encoder whose hidden layers
+# Stage A computes (one with a softmax hidden layer: a segment_softmax
+# launch), several decoders in chunked passes (E = 33 > the ring's chunk)
+# with softmax ones among them. And 16 encoders at state 64, whose state
+# tiles do not all fit beside the region: the small-plan kernel with the
+# decoders after every encoder, on 16-row and on 128-row tiles. And 40
+# encoders, past the small-plan kernel's 32: the general kernel's tile
+# variants, the validity mask refilled after 32 encoders.
+_FORTY = (8, lambda: [tenc.MIMICMLPEncoder(8, 1 + e % 5, (6,), 0.0)
+                      for e in range(40)],
+          lambda: [tdec.MLPDecoder(8, (4,), 2),
+                   tdec.ClassDecoder(8, 3, "softmax")])
+_SIXTEEN = (64, lambda: [tenc.MIMICMLPEncoder(64, 3 + e % 4, (4,), 0.0,
+                                              "tanh") for e in range(16)],
+            lambda: [tdec.MLPDecoder(64, (8,), 2),
+                     tdec.ClassDecoder(64, 3, "softmax")])
+MIXED_CASES = {
+    "interleaved_16": (*_SIXTEEN, fc.INTERLEAVED, (16, 40)),
+    "large_16": (*_SIXTEEN, fc.LARGE, (20000,)),
+    "batched_40": (*_FORTY, fc.BATCHED, (16, 33)),
+    "large_40": (*_FORTY, fc.LARGE, (20000,)),
+    "ring_mixed": (
+        50, lambda: [tenc.MLPFeatureEncoder(50, 32, "tanh") if e % 2 else
+                     tenc.MIMICMLPEncoder(50, 2, (32,), 0.0, "softmax")
+                     for e in range(33)],
+        lambda: [tdec.MLPDecoder(50, (16,), 2),
+                 tdec.ClassDecoder(50, 5, "softmax"),
+                 tdec.LogisticDecoder(50),
+                 tdec.MLPDecoder(50, (12, 8), 3, "softmax", "gelu")],
+        fc.RING, (16, 37)),
+    "layered_mixed": (
+        50, lambda: [tenc.MIMICMLPEncoder(50, 10, (2048, 2048), 0.0,
+                                          "softmax"),
+                     tenc.MLPEncoder(50, 24, (64, 32), "tanh"),
+                     tenc.MLPEncoder(50, 7, (16,), "softmax"),
+                     tenc.MIMICMLPEncoder(50, 99, (1800,), 0.0, "gelu")],
+        lambda: [tdec.MLPDecoder(50, (32,), 3, "softmax", "gelu"),
+                 tdec.ClassDecoder(50, 4, "softmax"),
+                 tdec.LogisticDecoder(50)],
+        fc.LAYERED, (16, 300)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,B", [(c, B) for c in sorted(MIXED_CASES)
+                                    for B in MIXED_CASES[c][4]])
+def test_stage_b_variants_on_mixed_modules(cuda, case, B):
+    """Each variant as the plan picks it, within ATOL of the largest value
+    of the plain chain, with the plan's launches."""
+    S, make_enc, make_dec, variant, _batches = MIXED_CASES[case]
+    model = MultiModN(S, make_enc(), make_dec(), 1.0, 0.0, seed=7,
+                      device=cuda)
+    spec = fc.ChainSpec(model.encoders, model.decoders, model.state_size)
+    assert fc.FUSED_CHAIN.stage_b_config(spec, B, cuda)[0] == variant
+    data, valid, init = _chain_inputs(model, B, cuda)
+    before = fc.FUSED_CHAIN.launches
+    got = fc.fused_chain_forward(spec, model.params, data, valid, init)
+    want = fc.fused_chain_forward_ref(spec, model.params, data, valid, init)
+    torch.cuda.synchronize()
+    assert fc.FUSED_CHAIN.launches == before + spec.launches
+    scale = max(w.abs().max().item() for w in [want[0], *want[1]])
+    for g, w in zip([got[0], *got[1]], [want[0], *want[1]]):
+        torch.testing.assert_close(g, w, rtol=0, atol=ATOL * max(scale, 1))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", TITANIC)
 @pytest.mark.parametrize("B", [139, 178, 712])

@@ -227,3 +227,34 @@ def test_single_target_cache_is_byte_equal_either_way(tmp_path, monkeypatch):
         with open(os.path.join(cache, "data.csv")) as f:
             texts.append(f.read())
     assert texts[0] == texts[1]
+
+
+def test_cache_read_without_a_compiler(tmp_path, monkeypatch):
+    """No ``g++`` and an empty build directory: the native library cannot
+    be built, so the MIMIC cache files take the Python parse, with a
+    warning and a record of which reader ran, and load as the native read
+    loads them. ``data/disk.py`` still has no fallback."""
+    monkeypatch.delenv("MULTIMODN_MIMIC_EMBED_PATH", raising=False)
+    root = str(tmp_path / "cache")
+    fast_readers = {}
+    monkeypatch.setattr(table, "READERS", fast_readers, raising=False)
+    fast = tmimic._load_mimic_full(TARGETS, SOURCES, cache_root=root,
+                                   synthetic_kwargs=SYNTH)
+    table._NUMERIC_CACHE.clear()
+    monkeypatch.setattr(table, "READERS", {}, raising=False)
+    monkeypatch.setattr(native, "CXX", str(tmp_path / "no-such-g++"))
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "empty"))
+    monkeypatch.setattr(native, "_lib", None)
+    with pytest.warns(RuntimeWarning, match="Python parser"):
+        slow = tmimic._load_mimic_full(TARGETS, SOURCES, cache_root=root,
+                                       synthetic_kwargs=SYNTH)
+    assert set(fast_readers.values()) == {"native"}
+    assert table.READERS and all(
+        r.startswith("python: the native library is unavailable")
+        for r in table.READERS.values())
+    for a, b in zip(fast[:2], slow[:2]):
+        assert _same(a, b)
+    assert fast[2:4] == slow[2:4]
+    assert _same(fast[4], slow[4])
+    with pytest.raises(OSError):
+        native.get_lib()
