@@ -2,9 +2,7 @@
 """Drive the PyTorch/CUDA port (``multimodn_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --protocol-only --patients 6485 --epochs 1
-    python3 chip_smoke.py --protocol-only --stream-folds --patients 6485 --epochs 2
-    python3 chip_smoke.py --mnar-only --epochs 10
+    python3 chip_smoke.py --all-protocols [--patients N --epochs N --nfold N --stages 1 2 3 4 --keep DIR]
     python3 chip_smoke.py --orders-only
     python3 chip_smoke.py --dropin-only
     python3 chip_smoke.py --experiments-only
@@ -13,12 +11,12 @@
     python3 chip_smoke.py --vjp-only
     python3 chip_smoke.py --chain-only
 
-The first form is the smoke run; the second times phase 8 alone at another
-data size and depth, the third with every fold's batches streamed; the
-fourth runs the MNAR protocol grid alone, the fifth phase 13 alone, the
-sixth phase 14 alone, the seventh phase 15 alone, the eighth phase 16
-alone, the ninth phases 17 and 18 alone, the tenth phase 19 alone, the
-eleventh phase 20 at its full set (``CHAIN_CONFIGS``).
+The first form is the smoke run; the second runs phase 8 alone, the
+published-protocol runner at the published scale (300 patients, 100
+epochs, 5 folds, all four stages) or at the values given; the third
+phase 13 alone, the fourth phase 14 alone, the fifth phase 15 alone, the
+sixth phase 16 alone, the seventh phases 17 and 18 alone, the eighth
+phase 19 alone, the ninth phase 20 at its full set (``CHAIN_CONFIGS``).
 Phases, each fatal on failure:
 
 1. the card's name and power limit, torch and CUDA versions; TF32 off;
@@ -57,28 +55,35 @@ Phases, each fatal on failure:
    ``key_averages()``;
 7. the card against the CPU: the same weights take 3 ``Adam8bit`` steps on
    the same batches on both devices and must agree;
-8. the MIMIC protocol: the port's three MIMIC pipelines (single-task, 2
-   targets x 5 folds; multi-task, 5 folds; MNAR with 50% missingness) at
-   the MIMIC model's full width on the pipelines' default synthetic data
-   (120 patients), 3 epochs each, in a temporary directory that holds the
-   results CSVs and the data cache. The CSVs must hold 20, 20 and 40 rows,
-   every AUROC finite and in [0, 1], every MultiModN and HAIM parameter on
-   the card, and neither pandas, scikit-learn, JAX nor the JAX package
-   loaded. Each pipeline's wall time splits into data and cache build,
-   MultiModN folds and HAIM folds, with training steps per second and the
-   cache files' parses (each pipeline starts with no parse kept, as in a
-   process of its own). Every cache file a pipeline parsed must go through
-   the native reader (``native/csv.cpp``) and read again bit-equal through
-   the Python parse (NaN where NaN), whose seconds are printed beside the
-   native parse's. No kernel is on this path (the protocol trains
-   with ``Adam`` and tests through the plain chain, as the JAX package's
-   does): both launch counters must read 0 after each pipeline;
+8. the published-protocol runner (``pipelines/mimic/all_protocols.py``,
+   the port of ``nips/run_all_protocols.py``) at the MIMIC model's full
+   width on 120 synthetic patients, 2 folds and 2 epochs, in a temporary
+   storage directory: its four stages (single-task and multi-task, 2
+   targets; the MNAR grid of six missingness levels with the batch skip,
+   then with the per-sample skip), each started as in a process of its own
+   (no parse kept). Each stage's CSV must hold 2 targets x folds x 2
+   models rows (x 11 tests for MNAR), every AUROC finite and in [0, 1],
+   the MNAR rows and summary (22 groups) their counts, every MultiModN and
+   HAIM parameter on the card, and neither pandas, scikit-learn, JAX nor
+   the JAX package loaded. Each stage's wall time splits into data and
+   cache build, MultiModN folds and HAIM folds (and the MNAR levels), with
+   training steps per second and the cache files' parses; every cache file
+   a stage parsed must go through the native reader (``native/csv.cpp``)
+   and read again bit-equal through the Python parse (NaN where NaN),
+   whose seconds are printed beside the native parse's. Each target's mean
+   and fold spread of test AUROC (the MNAR flipped-class table) stand
+   beside the JAX package's committed rows in ``nips/results/``. No kernel
+   is on this path (the protocol trains with ``Adam`` and tests through
+   the plain chain, as the JAX package's does): both launch counters must
+   read 0 after each stage;
 9. the Titanic quick-start and its pipelines: the port's six Titanic
    pipelines at 5 epochs (the reference's smoke depth) with the results
    CSV written in a temporary directory, plots and pickles off; then the
-   quick-start (the titanic_mlp config) for 100 of its published 300
-   epochs of ``fit``, then ``test``, the last epoch's training loss below the
-   first's; then the trained quick-start, partitioned, featurewise and
+   port's quick-start (``examples/quickstart.py``'s ``main``) for 100 of
+   its published 300 epochs of ``fit``, then ``test``, the last epoch's
+   training loss below the first's, its session's probabilities the
+   model's own and its artifact's reload answering as the model; then
+   the trained quick-start, partitioned, featurewise and
    missingness models through ``export_model`` -> ``load_model``, each
    answering its validation set in requests of 16 rows through
    ``fused_forward`` (K1 at state 1, at two partitions, at five and six
@@ -91,17 +96,10 @@ Phases, each fatal on failure:
    JAX package's do); wall times, training steps per second, and a
    ``torch.profiler`` split of 8 steps of the quick-start's and the LSTM
    pipeline's models printed;
-10. the MNAR robustness protocol (``pipelines/mimic/mnar_protocol.py``)
-   cut to 120 patients, 2 folds and 2 epochs, all six missingness levels,
-   for ``nan_skip='batch'`` and for ``'sample'`` with the presence penalty
-   (lambda 25), in a temporary directory: 2 targets x 2 folds x (1 or 2
-   tests) rows per level and model, the summary's 22 groups, every AUROC
-   in [0, 1], no kernel launched, no pandas, scikit-learn or JAX loaded;
-   wall time per variant and level, MultiModN and HAIM steps/s. Then a
-   MIMIC model trained by ``fit_best`` with ``nan_skip='sample'`` and
-   lambda 25 on an 80%-degraded fold goes through ``export_model`` ->
-   ``load_model`` and serves its flipped-class test rows through K1,
-   launches counted, held against the plain chain;
+10. a MIMIC model trained by ``fit_best`` with ``nan_skip='sample'`` and
+   the presence penalty (lambda 25) on an 80%-degraded fold goes through
+   ``export_model`` -> ``load_model`` and serves its flipped-class test
+   rows through K1, launches counted, held against the plain chain;
 11. the MIMIC transformer pipeline at full width (a ``TransformerEncoder``
    of embed 128, 4 heads, 2 layers, chunk 64 per source: 1, 16, 12 and 2
    tokens) on 120 patients, 5 folds, 2 epochs: 20 rows, wall time and
@@ -285,10 +283,6 @@ Phases, each fatal on failure:
    ``orders``, ``experiments``, ``precision``, ``parallel`` and
    ``parallel_encoders`` blocks), the script's wall time, the card's line, and last the ``{"ok": true, ...}``
    line.
-
-``--mnar-only`` runs phase 1 and the MNAR protocol grid alone at the
-published cohort scale (300 patients, 5 folds) for ``batch``, ``sample``
-and ``sample`` + lambda 25, ``--epochs`` deep.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
@@ -1060,15 +1054,12 @@ def check_device_vs_cpu(device):
     return err
 
 
-# Phase 8: the three MIMIC pipelines with their argv and the rows their
-# results CSVs must hold (2 targets x 5 folds x (MultiModN, HAIM); 5 folds x
-# 2 targets x 2 models; and twice that for MNAR's clean and flipped tests).
-PROTOCOL_EPOCHS = 3
-PROTOCOL_RUNS = (
-    ("mimic_single_task_pipeline", [], 20),
-    ("mimic_multi_task_pipeline", [], 20),
-    ("mimic_single_task_mnar_missingness_pipeline", ["-p", "50"], 40),
-)
+# Phase 8: the published-protocol runner (pipelines/mimic/all_protocols.py,
+# the port of nips/run_all_protocols.py), its four stages cut in the main
+# call; --all-protocols runs it at the published scale, or at --patients,
+# --epochs, --nfold and --stages.
+PROTOCOL_PATIENTS, PROTOCOL_EPOCHS, PROTOCOL_FOLDS = 120, 2, 2
+FULL_PATIENTS, FULL_EPOCHS, FULL_FOLDS = 300, 100, 5
 FOREIGN_MODULES = ("pandas", "sklearn", "jax", "multimodn_tpu")
 
 
@@ -1194,22 +1185,56 @@ def parse_check(parses, read_numeric, table_io):
             "python_parse_s": python_s}
 
 
-def run_protocol(device, patients=None, epochs=PROTOCOL_EPOCHS,
-                 stream_folds=False):
-    """Phase 8: the three MIMIC pipelines on the card, on the synthetic
-    table of ``patients`` patients (default: the pipelines' own), their
-    folds streamed with ``stream_folds``."""
+def auroc_by_target(path, table_io):
+    """Mean, fold spread (sample std) and count of the test AUROC per model
+    and target of a pipeline's results CSV."""
+    rows = table_io.read_csv(path)
+    out = {}
+    for model in ("modn", "haim"):
+        for target in sorted(set(rows["target"].tolist())):
+            auc = rows["auc"][(rows["model"] == model)
+                              & (rows["target"] == target)]
+            out[f"{model} {target}"] = {
+                "mean": float(np.mean(auc)),
+                "spread": float(np.std(auc, ddof=1)) if len(auc) > 1
+                else None, "folds": int(len(auc))}
+    return out
+
+
+def beside_published(mine, published):
+    """Each (model, target) beside the JAX package's committed TPU rows:
+    their means' gap in fold spreads (the larger of the two)."""
+    out = {}
+    for key, r in mine.items():
+        theirs = published.get(key)
+        spreads = [x for x in (r["spread"], theirs and theirs["spread"])
+                   if x]
+        gap = None if not (theirs and spreads) else \
+            abs(r["mean"] - theirs["mean"]) / max(spreads)
+        out[key] = {"port": r, "jax_tpu": theirs, "gap_in_spreads": gap}
+    return out
+
+
+def run_all_protocols(device, patients, epochs, nfold, stages=(1, 2, 3, 4),
+                      keep=None):
+    """Phase 8: the published-protocol runner on the card at ``patients``,
+    ``epochs`` and ``nfold``, in a temporary storage directory; each stage
+    timed (data and cache, MultiModN and HAIM folds, steps/s, the MNAR
+    levels), its models on the card, its cache files read natively and
+    bit-equal to the Python parse, no kernel launched, its CSVs checked
+    and their AUROCs set beside the JAX package's committed rows in
+    ``nips/results/``. ``keep``: a directory to copy the CSVs to."""
     from multimodn_tpu_torch.baselines.haim import HAIM
     from multimodn_tpu_torch.data import mimic as mimic_data
     from multimodn_tpu_torch.data import table as table_io
-    from multimodn_tpu_torch.pipelines.mimic import common
-
-    if patients is None:
-        patients = common.MimicConfig().synthetic_patients
+    from multimodn_tpu_torch.pipelines.mimic import all_protocols as runner
+    from multimodn_tpu_torch.pipelines.mimic import common, \
+        mimic_multi_task_pipeline, mimic_single_task_pipeline
+    from multimodn_tpu_torch.pipelines.mimic import mnar_protocol as proto
 
     if foreign_modules():
         raise AssertionError(f"loaded before phase 8: {foreign_modules()}")
-    models = []
+    models, records, level_s = [], {}, []
     build = common.build_modn
 
     def recording_build(*args, **kwargs):
@@ -1224,7 +1249,6 @@ def run_protocol(device, patients=None, epochs=PROTOCOL_EPOCHS,
     clock = fold_clock()
     clock.wrap(mimic_data.MIMICDataset, "__init__", "data")
     clock.wrap(mimic_data, "build_mimic_cache", "data")
-    common.build_modn, common.HAIM = recording_build, RecordingHAIM
     # Each parse of a cache file: its seconds, and whether the per-file
     # parse memo of data/table.py served it (the same array came back).
     parses, read_numeric = [], mimic_data.read_numeric_csv
@@ -1236,94 +1260,160 @@ def run_protocol(device, patients=None, epochs=PROTOCOL_EPOCHS,
                        out[1].shape[1], path))
         return out
 
-    mimic_data.read_numeric_csv = timed_read
+    level_main = proto.mnar_pipeline.main
+
+    def timed_level(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = level_main(*args, **kwargs)
+        torch.cuda.synchronize()
+        level_s.append(time.perf_counter() - t0)
+        return out
+
+    def staged(owner, name):
+        """Wrap a stage's main: each stage starts as in a process of its
+        own (no parse kept), with the launch counters at 0."""
+        fn = owner.main
+
+        def run(*args, **kwargs):
+            stage = name or runner.STAGE_NAMES[
+                3 if kwargs["nan_skip"] == "batch" else 4]
+            table_io._NUMERIC_CACHE.clear()
+            del parses[:], level_s[:]
+            torch.cuda.synchronize()
+            FUSED_CHAIN.launches = FUSED_ADAM.launches = 0
+            n_models = len(models)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            seconds, steps = clock.take()
+            first = {}
+            for sec, key, _, _ in parses:
+                first.setdefault(key, sec)
+            records[stage] = {
+                "wall_s": wall,
+                "data_and_cache_s": seconds.get("data", 0.0),
+                "modn_folds_s": seconds.get("modn", 0.0),
+                "haim_folds_s": seconds.get("haim", 0.0),
+                "other_s": wall - sum(seconds.values()),
+                **fold_rates(seconds, steps),
+                "models": models[n_models:],
+                "launches": (FUSED_CHAIN.launches, FUSED_ADAM.launches),
+                "parses": len(parses), "parse_misses": len(first),
+                "parse_miss_s": sum(first.values()),
+                "parse_hit_s": sum(p[0] for p in parses)
+                - sum(first.values()),
+                "cache_rows": max(p[2] for p in parses),
+                "native_read": parse_check(parses, read_numeric, table_io),
+                "level_s": dict(zip([str(mp) for mp in proto.MISS_PERCS],
+                                    level_s))}
+            return out
+
+        owner.main = run
+        return fn
+
+    patched = [(m, staged(m, n)) for m, n in (
+        (mimic_single_task_pipeline, runner.STAGE_NAMES[1]),
+        (mimic_multi_task_pipeline, runner.STAGE_NAMES[2]), (proto, None))]
 
     def undo_patches():
         clock.restore()
         common.build_modn, common.HAIM = build, HAIM
         mimic_data.read_numeric_csv = read_numeric
+        proto.mnar_pipeline.main = level_main
+        for owner, fn in patched:
+            owner.main = fn
 
-    results = {}
+    common.build_modn, common.HAIM = recording_build, RecordingHAIM
+    mimic_data.read_numeric_csv = timed_read
+    proto.mnar_pipeline.main = timed_level
+    published = os.path.join(ROOT, "nips", "results")
+    levels = proto.MISS_PERCS
     with contextlib.ExitStack() as stack:
         stack.callback(undo_patches)
         work = stack.enter_context(scratch_storage("chip_smoke_protocol_"))
-        for module, argv, want_rows in PROTOCOL_RUNS:
-            main = importlib.import_module(
-                f"multimodn_tpu_torch.pipelines.mimic.{module}").main
-            # Each pipeline starts as in a process of its own: no parse is
-            # kept from the one before (the cache files on disk are).
-            table_io._NUMERIC_CACHE.clear()
-            del parses[:]
-            cfg = common.MimicConfig(synthetic_patients=patients,
-                                     stream_folds=stream_folds)
-            torch.cuda.synchronize()
-            FUSED_CHAIN.launches = FUSED_ADAM.launches = 0
-            n_models = len(models)
-            t0 = time.perf_counter()
-            rows = main(argv + ["-e", str(epochs)], cfg, device=device)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            seconds, steps = clock.take()
-            launched = (FUSED_CHAIN.launches, FUSED_ADAM.launches)
-            name = module.replace("_pipeline", "")
-            path = os.path.join(work, "store", "nips", "results",
-                                f"{name}_(auc + bac).csv")
-            with open(path, newline="") as f:
-                table = list(csv.DictReader(f))
-            aucs = [float(r["auc"]) for r in table]
-            if len(table) != want_rows or len(rows) != want_rows:
-                raise AssertionError(f"{name}: {len(table)} CSV rows, "
-                                     f"{len(rows)} results; want {want_rows}")
-            if not all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in aucs):
-                raise AssertionError(f"{name}: AUROC outside [0, 1]: {aucs}")
-            off_card = [type(m).__name__ for m in models[n_models:]
+        t0 = time.perf_counter()
+        walls = runner.main(patients, epochs, nfold, device=device,
+                            stages=stages)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        results = os.path.join(work, "store", "nips", "results")
+        files = {1: runner.SHARED[0], 2: runner.SHARED[1],
+                 3: runner.SHARED[2], 4: runner.SAMPLE_COPY}
+        for stage in sorted(stages):
+            name = runner.STAGE_NAMES[stage]
+            r = records.pop(name)
+            stage_models = r.pop("models")
+            off_card = [type(m).__name__ for m in stage_models
                         if not all(t.is_cuda for t in tree_leaves(m.params))]
-            if off_card or len(models) == n_models:
+            if off_card or not stage_models:
                 raise AssertionError(f"{name}: parameters off the card in "
                                      f"{off_card}")
-            if launched != (0, 0):
+            if r["launches"] != (0, 0):
                 raise AssertionError(f"{name}: the fused kernels launched "
-                                     f"{launched} times on the protocol "
-                                     f"path, which runs neither")
-            first = {}
-            for sec, key, _, _ in parses:
-                first.setdefault(key, sec)
-            miss_s = sum(first.values())
-            native_read = parse_check(parses, read_numeric, table_io)
-            if native_read["files_python_parse"] or \
-                    native_read["files_not_bit_equal"]:
+                                     f"{r['launches']} times on the "
+                                     f"protocol path, which runs neither")
+            if r["native_read"]["files_python_parse"] or \
+                    r["native_read"]["files_not_bit_equal"]:
                 raise AssertionError(f"{name}: the cache files' native read "
-                                     f"{native_read}")
-            other = wall - sum(seconds.values())
-            r = {"patients": patients, "epochs": epochs,
-                 "stream_folds": stream_folds,
-                 "rows": len(table), "wall_s": wall,
-                 "data_and_cache_s": seconds.get("data", 0.0),
-                 "modn_folds_s": seconds.get("modn", 0.0),
-                 "haim_folds_s": seconds.get("haim", 0.0),
-                 "other_s": other,
-                 "modn_steps": steps.get("modn", 0),
-                 "haim_steps": steps.get("haim", 0),
-                 "modn_steps_per_s": steps.get("modn", 0)
-                 / max(seconds.get("modn", 0.0), 1e-9),
-                 "haim_steps_per_s": steps.get("haim", 0)
-                 / max(seconds.get("haim", 0.0), 1e-9),
-                 "models": len(models) - n_models,
-                 "auc_min": min(aucs), "auc_max": max(aucs),
-                 "parses": len(parses), "parse_misses": len(first),
-                 "parse_miss_s": miss_s,
-                 "parse_hit_s": sum(p[0] for p in parses) - miss_s,
-                 "cache_rows": max(p[2] for p in parses),
-                 "data_share": seconds.get("data", 0.0) / wall,
-                 **native_read,
-                 "k1_launches": launched[0], "k2_launches": launched[1]}
-            results[name] = r
+                                     f"{r['native_read']}")
+            with open(os.path.join(results, files[stage]), newline="") as f:
+                table = list(csv.DictReader(f))
+            # 2 targets x nfold folds x 2 models, each MNAR model tested
+            # once at 0% and twice (clean, flipped) at each other level.
+            tests = 1 if stage < 3 else 1 + 2 * (len(levels) - 1)
+            aucs = [float(row["auc"]) for row in table]
+            if len(table) != 4 * nfold * tests:
+                raise AssertionError(f"{name}: {len(table)} CSV rows, want "
+                                     f"{4 * nfold * tests}")
+            if not all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in aucs):
+                raise AssertionError(f"{name}: AUROC outside [0, 1]")
+            r.update({"patients": patients, "epochs": epochs, "folds": nfold,
+                      "rows": len(table), "auc_min": min(aucs),
+                      "auc_max": max(aucs), "stage_wall_s": walls[name]})
+            if stage < 3:
+                r["auroc"] = beside_published(
+                    auroc_by_target(os.path.join(results, files[stage]),
+                                    table_io),
+                    auroc_by_target(os.path.join(published, files[stage]),
+                                    table_io))
+            else:
+                nan_skip = "batch" if stage == 3 else "sample"
+                tag = proto.variant_tag(nan_skip, 0.0, patients, epochs,
+                                        nfold)
+                rows = table_io.read_csv(os.path.join(
+                    results, f"mnar_protocol_rows_{tag}.csv"))
+                for model in ("modn", "haim"):
+                    n = int((rows["model"] == model).sum())
+                    if n != 2 * nfold * tests:
+                        raise AssertionError(f"{tag}: {n} {model} rows, "
+                                             f"want {2 * nfold * tests}")
+                summary = table_io.read_csv(os.path.join(
+                    results, f"mnar_robustness_summary_{tag}.csv"))
+                n_groups = 2 * (2 * len(levels) - 1)
+                if len(summary["mean"]) != n_groups or list(
+                        summary["count"]) != [2 * nfold] * n_groups:
+                    raise AssertionError(f"{tag}: summary {summary}")
+                jax = table_io.read_csv(os.path.join(
+                    published, f"mnar_robustness_summary_{nan_skip}.csv"))
+                r["auroc"] = {"port": flipped_table(summary, levels),
+                              "jax_tpu": flipped_table(jax, levels),
+                              "port_std": flipped_table(
+                                  dict(summary, mean=summary["std"]), levels),
+                              "jax_tpu_std": flipped_table(
+                                  dict(jax, mean=jax["std"]), levels)}
+            records[name] = r
             log(f"  {name}: {json.dumps(r)}")
+        if keep:
+            os.makedirs(keep, exist_ok=True)
+            for f in os.listdir(results):
+                shutil.copy(os.path.join(results, f), keep)
     if foreign_modules():
         raise AssertionError(f"loaded by phase 8: {foreign_modules()}")
     log(f"  pandas, scikit-learn, JAX and the JAX package not loaded; "
         f"MultiModN and HAIM parameters on {device}")
-    return results
+    records["total_s"] = total
+    return records
 
 
 # Phase 9: the six Titanic pipelines at the reference's smoke depth
@@ -1387,35 +1477,47 @@ def run_titanic_pipelines(device, work):
     return records, trained
 
 
-def run_quickstart(device):
-    """The quick-start: the titanic_mlp config for ``QUICKSTART_EPOCHS`` of
-    ``fit`` with validation, then ``test`` on the validation set."""
-    from multimodn_tpu_torch.pipelines.titanic import common
-    cfg = titanic_pipeline("titanic_mlp").CONFIG
-    train, val, _ = common.split(cfg, 0)
-    model = common.build_model(cfg, 0, device)
-    history = MultiModNHistory(cfg.targets)
-    t0 = time.perf_counter()
-    model.fit(common.loader(cfg, train), Adam(cfg.learning_rate),
-              "cross_entropy", epochs=QUICKSTART_EPOCHS, history=history,
-              val_loader=common.loader(cfg, val))
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    f1, auc, acc = model.test(common.loader(cfg, val), "cross_entropy")[0][:3]
+def run_quickstart(device, work):
+    """The port's quick-start (``examples/quickstart.py``'s ``main``) for
+    ``QUICKSTART_EPOCHS`` of ``fit`` with validation, its artifact in
+    ``work``: the training loss falls, the validation AUROC is finite, the
+    session's probabilities are the model's own and the artifact's reload
+    answers as the model does."""
+    from multimodn_tpu_torch.examples import quickstart
+    clock = PhaseClock()
+    clock.wrap(MultiModN, "fit", "fit", steps=lambda out, self, tr, *a,
+               **k: k["epochs"] * tr.n_batches)
+    try:
+        out = quickstart.main(device, workdir=work,
+                              epochs=QUICKSTART_EPOCHS)
+    finally:
+        clock.restore()
+    seconds, steps = clock.take()
+    model, history = out["model"], out["history"]
     losses = mean_losses(history, "train")
-    steps = QUICKSTART_EPOCHS * common.loader(cfg, train).n_batches
-    r = {"epochs": QUICKSTART_EPOCHS, "fit_s": fit_s, "steps": steps,
-         "steps_per_s": steps / fit_s, "first_train_loss": losses[0],
-         "last_train_loss": losses[-1],
+    r = {"epochs": QUICKSTART_EPOCHS, "fit_s": seconds["fit"],
+         "steps": steps["fit"], "steps_per_s": steps["fit"] / seconds["fit"],
+         "first_train_loss": losses[0], "last_train_loss": losses[-1],
          "last_val_loss": mean_losses(history, "val")[-1],
-         "val_auroc": float(auc), "val_f1": float(f1),
-         "val_accuracy": float(acc)}
+         "val_auroc": out["val"]["auroc"], "val_f1": out["val"]["f1"],
+         "val_accuracy": out["val"]["accuracy"],
+         "session_prior": out["prior"].tolist(),
+         "session_after": out["after"].tolist(),
+         "artifact_round_trip": out["round_trip"]}
     log(f"  quick-start: {json.dumps(r)}")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"quick-start: the training loss did not fall "
                              f"({losses[0]} -> {losses[-1]})")
-    if not np.isfinite(auc):
+    if not np.isfinite(out["val"]["auroc"]):
         raise AssertionError("quick-start: validation AUROC is not finite")
+    probs = model.predict_proba([out["rows"]])[0]
+    if not (out["round_trip"] and np.allclose(out["prior"], probs[0, :, 1])
+            and np.allclose(out["after"], probs[1, :, 1])):
+        raise AssertionError("quick-start: the session or the artifact "
+                             "answers otherwise than the model")
+    if not all(t.device.type == device.type
+               for t in tree_leaves(model.params)):
+        raise AssertionError(f"quick-start: parameters off {device}")
     return r, model
 
 
@@ -1522,7 +1624,7 @@ def run_titanic(device):
         torch.cuda.synchronize()
         FUSED_CHAIN.launches = FUSED_ADAM.launches = 0
         pipelines, trained = run_titanic_pipelines(device, work)
-        quick, trained["titanic_mlp"] = run_quickstart(device)
+        quick, trained["titanic_mlp"] = run_quickstart(device, work)
         torch.cuda.synchronize()
         if (FUSED_CHAIN.launches, FUSED_ADAM.launches) != (0, 0):
             raise AssertionError(
@@ -1541,15 +1643,10 @@ def run_titanic(device):
             "profile": profiles}
 
 
-# Phase 10: the MNAR robustness protocol (the port of
-# nips/run_mnar_protocol.py), cut, for the batch-granular skip and for the
-# per-sample skip with the presence penalty; then a lambda-trained MIMIC
-# model served through K1. --mnar-only runs the grid at the published
-# cohort scale (300 patients, 5 folds) for the three published variants.
-MNAR_PATIENTS, MNAR_FOLDS, MNAR_EPOCHS = 120, 2, 2
-MNAR_VARIANTS = (("batch", 0.0), ("sample", 25.0))
-MNAR_FULL_PATIENTS, MNAR_FULL_FOLDS = 300, 5
-MNAR_FULL_VARIANTS = (("batch", 0.0), ("sample", 0.0), ("sample", 25.0))
+# Phase 10: a MIMIC model trained with the per-sample skip and the presence
+# penalty on an MNAR-degraded fold, served through K1 (the MNAR protocol
+# itself runs in phase 8's stages 3 and 4).
+MNAR_PATIENTS, MNAR_EPOCHS = 120, 2
 MNAR_SERVED_MISS, MNAR_SERVED_LAMBDA = 80.0, 25.0
 
 
@@ -1570,81 +1667,6 @@ def flipped_table(summary, levels):
                              else None)
             out[f"{model}_{kind}"] = cells
     return out
-
-
-def run_mnar(device, patients, nfold, epochs, variants):
-    """The MNAR protocol runner for each ``(nan_skip, lambda)`` variant in a
-    temporary storage and cache directory: wall time per variant and per
-    level, MultiModN and HAIM steps/s, the rows and summary checked."""
-    from multimodn_tpu_torch.pipelines.mimic import mnar_protocol as proto
-
-    if foreign_modules():
-        raise AssertionError(f"loaded before phase 10: {foreign_modules()}")
-    levels = proto.MISS_PERCS
-    level_s = []
-    pipeline_main = proto.mnar_pipeline.main
-
-    def timed_level(*args, **kwargs):
-        t0 = time.perf_counter()
-        out = pipeline_main(*args, **kwargs)
-        torch.cuda.synchronize()
-        level_s.append(time.perf_counter() - t0)
-        return out
-
-    def undo_patches():
-        proto.mnar_pipeline.main = pipeline_main
-        clock.restore()
-
-    clock = fold_clock()
-    proto.mnar_pipeline.main = timed_level
-    results = {}
-    with contextlib.ExitStack() as stack:
-        stack.callback(undo_patches)
-        work = stack.enter_context(scratch_storage("chip_smoke_mnar_"))
-        for nan_skip, lam in variants:
-            del level_s[:]
-            torch.cuda.synchronize()
-            FUSED_CHAIN.launches = FUSED_ADAM.launches = 0
-            t0 = time.perf_counter()
-            summary = proto.main(patients, epochs, nfold, nan_skip, lam,
-                                 device=device)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            seconds, steps = clock.take()
-            tag = proto.variant_tag(nan_skip, lam, patients, epochs, nfold)
-            path = os.path.join(work, "store", "nips", "results",
-                                f"mnar_protocol_rows_{tag}.csv")
-            with open(path, newline="") as f:
-                table = list(csv.DictReader(f))
-            want_rows = 2 * nfold * (1 + 2 * (len(levels) - 1))
-            for model in ("modn", "haim"):
-                n = sum(r["model"] == model for r in table)
-                if n != want_rows:
-                    raise AssertionError(f"{tag}: {n} {model} rows, want "
-                                         f"{want_rows}")
-            aucs = [float(r["test_auc"]) for r in table]
-            if not all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in aucs):
-                raise AssertionError(f"{tag}: AUROC outside [0, 1]")
-            n_groups = 2 * (2 * len(levels) - 1)
-            if len(summary["mean"]) != n_groups or list(
-                    summary["count"]) != [2 * nfold] * n_groups:
-                raise AssertionError(f"{tag}: summary {summary}")
-            if (FUSED_CHAIN.launches, FUSED_ADAM.launches) != (0, 0):
-                raise AssertionError(f"{tag}: the fused kernels launched on "
-                                     f"the protocol path, which runs neither")
-            r = {"patients": patients, "folds": nfold, "epochs": epochs,
-                 "wall_s": wall,
-                 "level_s": dict(zip([str(mp) for mp in levels], level_s)),
-                 **fold_rates(seconds, steps),
-                 "rows": len(table), "auc_min": min(aucs),
-                 "auc_max": max(aucs),
-                 "auroc": flipped_table(summary, levels)}
-            results[tag] = r
-            log(f"  {tag}: {json.dumps(r)}")
-    if foreign_modules():
-        raise AssertionError(f"loaded by phase 10: {foreign_modules()}")
-    log("  pandas, scikit-learn, JAX and the JAX package not loaded")
-    return results
 
 
 def serve_mnar_model(device, epochs=MNAR_EPOCHS):
@@ -4727,26 +4749,23 @@ def build_kernels():
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--protocol-only", action="store_true",
-                   help="run phases 1 and 8 only and end with the protocol "
-                        "line (no kernel build, no ok line)")
-    p.add_argument("--patients", type=int, default=None,
-                   help="synthetic patients in phase 8 (default: the "
-                        "pipelines' own)")
-    p.add_argument("--mnar-only", action="store_true",
-                   help="run phase 1 and the MNAR protocol grid at the "
-                        "published scale (300 patients, 5 folds; batch, "
-                        "sample, sample + lambda 25) only, --epochs deep")
-    p.add_argument("--variants", nargs="+", default=None,
-                   metavar="NAN_SKIP[:LAMBDA]",
-                   help="with --mnar-only: the variants to run (default: "
-                        "batch sample sample:25)")
-    p.add_argument("--epochs", type=int, default=PROTOCOL_EPOCHS,
-                   help="epochs of each fold in phase 8 (and of the grid "
-                        "with --mnar-only)")
-    p.add_argument("--stream-folds", action="store_true",
-                   help="with --protocol-only: stream every fold's batches "
-                        "(MimicConfig.stream_folds)")
+    p.add_argument("--all-protocols", action="store_true",
+                   help="run phase 1 and the published-protocol runner "
+                        "(phase 8) at the published scale (300 patients, "
+                        "100 epochs, 5 folds, every stage) or at the "
+                        "values below, and end with the protocol line (no "
+                        "kernel build, no ok line)")
+    p.add_argument("--patients", type=int, default=FULL_PATIENTS,
+                   help="with --all-protocols: synthetic patients")
+    p.add_argument("--epochs", type=int, default=FULL_EPOCHS,
+                   help="with --all-protocols: epochs of each fold")
+    p.add_argument("--nfold", type=int, default=FULL_FOLDS,
+                   help="with --all-protocols: folds")
+    p.add_argument("--stages", type=int, nargs="+", default=[1, 2, 3, 4],
+                   choices=(1, 2, 3, 4),
+                   help="with --all-protocols: the runner's stages to run")
+    p.add_argument("--keep", default=None, metavar="DIR",
+                   help="with --all-protocols: copy the results CSVs here")
     p.add_argument("--orders-only", action="store_true",
                    help="run phases 1, 2 and 13 (encoding orders) only and "
                         "end with the orders line (no ok line)")
@@ -4805,23 +4824,11 @@ def main(argv=None) -> int:
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}, {torch.cuda.get_device_name(0)}")
-    if args.protocol_only:
-        log("== phase 8: MIMIC protocol"
-            + (", streamed folds" if args.stream_folds else ""))
-        protocol = run_protocol(device, args.patients, args.epochs,
-                                stream_folds=args.stream_folds)
+    if args.all_protocols:
+        phase("phase 8: the published-protocol runner")
+        protocol = run_all_protocols(device, args.patients, args.epochs,
+                                     args.nfold, args.stages, args.keep)
         log("protocol: " + json.dumps(protocol))
-        log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
-        log(card)
-        return 0
-    if args.mnar_only:
-        phase("phase 10: MNAR protocol grid")
-        variants = MNAR_FULL_VARIANTS if args.variants is None else [
-            (v.split(":")[0], float(v.split(":")[1]) if ":" in v else 0.0)
-            for v in args.variants]
-        mnar = run_mnar(device, args.patients or MNAR_FULL_PATIENTS,
-                        MNAR_FULL_FOLDS, args.epochs, variants)
-        log("mnar: " + json.dumps(mnar))
         log(f"chip_smoke wall time {time.perf_counter() - START:.1f} s")
         log(card)
         return 0
@@ -4898,18 +4905,17 @@ def main(argv=None) -> int:
     phase("phase 7: card against CPU")
     device_err = check_device_vs_cpu(device)
 
-    phase("phase 8: MIMIC protocol")
+    phase("phase 8: the published-protocol runner")
     log(card_line())
-    protocol = run_protocol(device, args.patients, args.epochs)
+    protocol = run_all_protocols(device, PROTOCOL_PATIENTS, PROTOCOL_EPOCHS,
+                                 PROTOCOL_FOLDS)
 
     phase("phase 9: Titanic")
     log(card_line())
     titanic = run_titanic(device)
 
-    phase("phase 10: MNAR protocol")
+    phase("phase 10: a lambda-trained MNAR model served")
     log(card_line())
-    mnar = run_mnar(device, MNAR_PATIENTS, MNAR_FOLDS, MNAR_EPOCHS,
-                    MNAR_VARIANTS)
     mnar_served = serve_mnar_model(device)
 
     phase("phase 11: transformer")
@@ -5099,7 +5105,7 @@ def main(argv=None) -> int:
     log("protocol: " + json.dumps(protocol))
     log("titanic: " + json.dumps({k: titanic[k] for k in (
         "pipelines", "quickstart", "profile")}))
-    log("mnar: " + json.dumps({"protocol": mnar, "served": mnar_served}))
+    log("mnar: " + json.dumps({"served": mnar_served}))
     log("transformer: " + json.dumps(transformer))
     log("resume: " + json.dumps({k: resume[k] for k in (
         "resume", "disk", "pipelines", "payload_write", "rates")}))

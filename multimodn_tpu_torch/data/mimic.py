@@ -178,8 +178,10 @@ def build_mimic_cache(
         if not os.path.exists(nips_src):
             build_mimic_cache(list(MIMIC_DEFAULT_TARGETS), sources,
                               orig_root, synthetic_kwargs)
-        columns, values = read_numeric_csv(nips_src)
-        table = dict(zip(columns, values))
+        # Columns of integers keep their dtype where the JAX package's
+        # reader of this file keeps it (pandas): their text does too.
+        columns, values, integers = read_numeric_csv(nips_src)
+        table = {c: integers.get(c, v) for c, v in zip(columns, values)}
         table["Agg"] = table[targets[0]].astype(np.int64)
     else:
         table = _load_embeddings(targets, synthetic_kwargs)
@@ -220,10 +222,11 @@ def load_mimic_data(
     synthetic_kwargs=None,
 ):
     """``(data, labels, features, partitions)``: the (N, F) float64 feature
-    matrix, the (N, T) float64 labels, the feature names and the
-    per-source widths (the reference's mimic_get_*_data loaders,
-    ``mimic_dataset.py:27-148``; the JAX package returns the first two as
-    DataFrames)."""
+    matrix, the (N, T) labels (float64, or int64 where the cache file was
+    read as the JAX package's pandas path reads it:
+    ``read_numeric_csv``), the feature names and the per-source widths
+    (the reference's mimic_get_*_data loaders, ``mimic_dataset.py:27-148``;
+    the JAX package returns the first two as DataFrames)."""
     return _load_mimic_full(targets, sources, put_none, indices_to_nan,
                             features_to_nan, cache_root, synthetic_kwargs)[:4]
 
@@ -241,12 +244,19 @@ def _load_mimic_full(
     feature matrix is column-major, as pandas holds a float frame."""
     cache_dir = build_mimic_cache(targets, sources, cache_root,
                                   synthetic_kwargs)
-    columns, values = read_numeric_csv(os.path.join(cache_dir, "data.csv"))
+    columns, values, integers = read_numeric_csv(
+        os.path.join(cache_dir, "data.csv"))
     position = {c: j for j, c in enumerate(columns)}
     features, partitions = _source_features(columns, sources)
     data = values[[position[c] for c in features]].T        # a copy
-    labels = values[[position[t] for t in targets]].T.copy()
-    haim_ids = values[position["haim_id"]].copy()
+    # Labels and ids take the dtype the JAX package's frame gives them:
+    # int64 where its reader read every target (the id) as integers.
+    if targets and all(t in integers for t in targets):
+        labels = np.stack([integers[t] for t in targets], axis=1)
+    else:
+        labels = values[[position[t] for t in targets]].T.copy()
+    haim_ids = np.array(integers.get("haim_id",
+                                     values[position["haim_id"]]))
     if put_none:
         cols = features_to_nan
         if isinstance(cols, str):
@@ -273,12 +283,13 @@ def _load_mimic_full(
 
 class MIMICDataset:
     """The MIMIC feature matrix ``X`` (N, F) float32 and labels ``y`` (N, T)
-    float64, with the reference's options: ``dropna`` drops rows holding a
-    NaN, ``std`` standardises each feature (scikit-learn's
-    ``StandardScaler``, NaN passed through), ``nanfill`` then zero-fills
-    for the HAIM baseline (mimic_dataset.py:176-178), and ``put_none``
-    sets ``features_to_nan`` of rows ``indices_to_nan`` to NaN first (MNAR
-    injection). ``cache_root`` defaults to ``DEFAULT_CACHE_ROOT``."""
+    (float64, or int64 as ``load_mimic_data`` says), with the reference's
+    options: ``dropna`` drops rows holding a NaN, ``std`` standardises
+    each feature (scikit-learn's ``StandardScaler``, NaN passed through),
+    ``nanfill`` then zero-fills for the HAIM baseline
+    (mimic_dataset.py:176-178), and ``put_none`` sets ``features_to_nan``
+    of rows ``indices_to_nan`` to NaN first (MNAR injection).
+    ``cache_root`` defaults to ``DEFAULT_CACHE_ROOT``."""
 
     def __init__(
         self,

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import csv
 import os
+import re
 import warnings
 from typing import Dict, List, Sequence, Tuple
 
@@ -153,20 +154,47 @@ def read_csv(path: str, on_bad_lines: str = "error") -> Dict[str, np.ndarray]:
             for name, col in zip(header, columns)}
 
 
-_NUMERIC_CACHE: Dict[tuple, Tuple[List[str], np.ndarray]] = {}
+_NUMERIC_CACHE: Dict[tuple, Tuple[List[str], np.ndarray,
+                                  Dict[str, np.ndarray]]] = {}
+
+_INTEGER = re.compile(r"[+-]?[0-9]+\Z")
+_INT64_MAX = float(2 ** 63)
 
 
-def _parse_numeric(path: str) -> Tuple[np.ndarray, List[str]]:
-    """``((n_rows, n_columns) float64, columns)`` of an all-numeric CSV file
-    through the Python parser, as ``native.read_csv_f64`` returns them:
-    pandas' NaN spellings read as NaN."""
+def _integer_columns(header: List[str], rows: List[List[str]],
+                     values: np.ndarray) -> Dict[str, np.ndarray]:
+    """The columns pandas' ``read_csv`` reads as int64: every field an
+    integer (digits, an optional sign) within int64, none missing. Each is
+    parsed exactly, not through its float64 image."""
+    out = {}
+    if not rows:
+        return out
+    whole = np.isfinite(values).all(axis=0) & (values == np.trunc(values)) \
+        .all(axis=0) & (np.abs(values) < _INT64_MAX).all(axis=0)
+    for j in np.flatnonzero(whole):
+        fields = [row[j] for row in rows]
+        if all(_INTEGER.match(t) for t in fields):
+            column = np.array([int(t) for t in fields], dtype=np.int64)
+            column.flags.writeable = False
+            out[header[j]] = column
+    return out
+
+
+def _parse_numeric(path: str) -> Tuple[np.ndarray, List[str],
+                                       Dict[str, np.ndarray]]:
+    """``((n_rows, n_columns) float64, columns, integer columns)`` of an
+    all-numeric CSV file through the Python parser: the float64 matrix as
+    ``native.read_csv_f64`` returns it (pandas' NaN spellings read as NaN),
+    and, by name, the columns pandas would read as int64
+    (``_integer_columns``)."""
     header, rows = read_rows(path)
     try:
         values = np.array(rows, dtype=np.float64)
     except ValueError:
         values = np.array([[float("nan") if t in NA_STRINGS else float(t)
                             for t in row] for row in rows], dtype=np.float64)
-    return values.reshape(len(rows), len(header)), header
+    values = values.reshape(len(rows), len(header))
+    return values, header, _integer_columns(header, rows, values)
 
 
 # Which reader parsed each cache file, by absolute path: "native", "python"
@@ -176,55 +204,77 @@ def _parse_numeric(path: str) -> Tuple[np.ndarray, List[str]]:
 READERS: Dict[str, str] = {}
 
 
-def _read_numeric(path: str) -> Tuple[np.ndarray, List[str]]:
-    """The native reader, or the Python parser where the native reader
-    leaves the file to a general parser or where its library cannot be
-    built or loaded (no ``g++``, no writable ``build/native/``: the
-    ``OSError`` or ``RuntimeError`` that ``native.get_lib`` raises, as the
-    JAX package's ``data/mimic.py`` falls back on any failure). The slow
-    path is never silent: ``READERS`` records it, and a missing library
-    warns."""
-    key = os.path.abspath(path)
+def _native_unavailable():
+    """None where the native library loads (built at the first call), else
+    the ``READERS`` entry that says why it cannot be built or loaded (no
+    ``g++``, no writable ``build/native/``: the ``OSError`` or
+    ``RuntimeError`` that ``native.get_lib`` raises, as the JAX package's
+    ``data/mimic.py`` falls back on any failure)."""
     try:
         native.get_lib()
     except (OSError, RuntimeError) as exc:
-        reason = f"python: the native library is unavailable ({exc})"
+        return f"python: the native library is unavailable ({exc})"
+    return None
+
+
+def _read_numeric(path: str, unavailable) -> Tuple[
+        np.ndarray, List[str], Dict[str, np.ndarray]]:
+    """The native reader, or the Python parser where the native reader
+    leaves the file to a general parser or where its library is
+    ``unavailable`` (``_native_unavailable``'s reason). The two mirror the
+    JAX package's two readers: its native one reads every column as
+    float64, and ``pd.read_csv``, which it takes otherwise, reads a column
+    of integers as int64, so only the Python parse returns integer
+    columns. The slow path is never silent: ``READERS`` records it, and a
+    missing library warns."""
+    key = os.path.abspath(path)
+    if unavailable:
         if not any(r.startswith("python: the native") for r in
                    READERS.values()):
             warnings.warn(f"reading the MIMIC cache files with the Python "
-                          f"parser: {reason}", RuntimeWarning, stacklevel=3)
-        READERS[key] = reason
+                          f"parser: {unavailable}", RuntimeWarning,
+                          stacklevel=4)
+        READERS[key] = unavailable
         return _parse_numeric(path)
     result = native.read_csv_f64(path)
     READERS[key] = "python" if result is None else "native"
-    return _parse_numeric(path) if result is None else result
+    return _parse_numeric(path) if result is None else (*result, {})
 
 
-def read_numeric_csv(path: str) -> Tuple[List[str], np.ndarray]:
-    """``(columns, values)`` of an all-numeric CSV file: ``values`` is a
-    read-only float64 array of shape ``(n_columns, n_rows)`` (one row per
-    column, the layout pandas keeps a float frame in). Empty fields and
-    pandas' NaN spellings read as NaN.
+def read_numeric_csv(path: str) -> Tuple[List[str], np.ndarray,
+                                         Dict[str, np.ndarray]]:
+    """``(columns, values, integers)`` of an all-numeric CSV file:
+    ``values`` is a read-only float64 array of shape ``(n_columns,
+    n_rows)`` (one row per column, the layout pandas keeps a float frame
+    in), and ``integers`` maps each column that the JAX package's reader
+    of the same file reads as int64 to its read-only int64 values: none on
+    the native path, each column of integers without a missing field on
+    the Python one (``_read_numeric``). Empty fields and pandas' NaN
+    spellings read as NaN.
 
     The file goes through the native reader (``native.read_csv_f64``, as
     the JAX package reads its cache files), which also reads ``na`` as NaN;
     where that reader leaves the file to a general parser (a quoted field,
     ragged rows, a field such as ``N/A`` that is not a number to it), or
     where its library cannot be built, the Python parser reads it
-    (``READERS`` says which ran). The two give the same bits on the files
-    ``write_csv`` writes: both round every field correctly.
+    (``READERS`` says which ran). The two give the same float64 bits on
+    the files ``write_csv`` writes: both round every field correctly.
 
-    The parse is kept per file (path, size and modification time), so the
-    many datasets a pipeline builds from one cache file parse it once."""
+    The parse is kept per file (path, size and modification time) and per
+    reader (whether the native library loads), so the many datasets a
+    pipeline builds from one cache file parse it once, and a reading by
+    one reader never serves the other."""
+    unavailable = _native_unavailable()
     st = os.stat(path)
-    key = (os.path.abspath(path), st.st_size, st.st_mtime_ns)
+    key = (os.path.abspath(path), st.st_size, st.st_mtime_ns,
+           unavailable is None)
     hit = _NUMERIC_CACHE.get(key)
     if hit is not None:
         return hit
-    values, header = _read_numeric(path)
+    values, header, integers = _read_numeric(path, unavailable)
     values = np.ascontiguousarray(values.T)
     values.flags.writeable = False
     if len(_NUMERIC_CACHE) >= 8:
         _NUMERIC_CACHE.pop(next(iter(_NUMERIC_CACHE)))
-    _NUMERIC_CACHE[key] = (header, values)
-    return header, values
+    _NUMERIC_CACHE[key] = (header, values, integers)
+    return header, values, integers

@@ -137,11 +137,12 @@ def markdown_table(summary: Dict[str, np.ndarray], variant: str) -> str:
 
 def main(patients: int = 300, epochs: int = 100, nfold: int = 5,
          nan_skip: str = "batch", presence_penalty: float = 0.0,
-         device=None) -> Dict[str, np.ndarray]:
+         device=None, out_dir: str = None) -> Dict[str, np.ndarray]:
     """Every level of ``MISS_PERCS`` through the MNAR pipeline; writes the
-    summary and rows CSVs and prints the markdown table. Returns the
-    summary as a dict of columns."""
-    out_dir = results_dir()
+    summary and rows CSVs to ``out_dir`` (default ``results_dir()``; the
+    pipeline's own rows go to ``results_dir()`` in any case) and prints
+    the markdown table. Returns the summary as a dict of columns."""
+    out_dir = out_dir or results_dir()
     tag = variant_tag(nan_skip, presence_penalty, patients, epochs, nfold)
     rows: Dict[str, list] = {c: [] for c in ROW_COLUMNS}
     t_total = time.time()

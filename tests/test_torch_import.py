@@ -150,9 +150,11 @@ def test_encoding_orders_train_without_jax():
 
 
 def test_mimic_pipelines_run_without_jax_pandas_or_sklearn(tmp_path):
-    """One epoch of each of the port's three MIMIC pipelines on the CPU at
-    a tiny size, in a process where importing jax, the JAX package, pandas
-    or scikit-learn fails."""
+    """One epoch of each of the port's three MIMIC pipelines, then the
+    published-protocol runner, on the CPU at a tiny size, the quick-start
+    for one epoch, and ``haim_api``'s three names (the port's own
+    objects), in a process where importing jax, the JAX package, pandas or
+    scikit-learn fails."""
     script = textwrap.dedent("""
         import os, sys
         for name in ("jax", "multimodn_tpu", "pandas", "sklearn"):
@@ -172,6 +174,19 @@ def test_mimic_pipelines_run_without_jax_pandas_or_sklearn(tmp_path):
                                      synthetic_patients=24)
             rows.append(len(main(argv, cfg, device="cpu")))
         assert rows == [8, 8, 16], rows
+        from multimodn_tpu_torch.pipelines.mimic import all_protocols
+        walls = all_protocols.main(24, 1, 2, device="cpu")
+        assert len(walls) == 4, walls
+        from multimodn_tpu_torch.examples import quickstart
+        out = quickstart.main(device="cpu", workdir=sys.argv[1], epochs=1)
+        assert out["round_trip"], out
+        from multimodn_tpu_torch.pipelines.mimic import haim_api
+        from multimodn_tpu_torch.baselines import haim
+        from multimodn_tpu_torch.core import metrics
+        assert haim_api.HAIM is haim.HAIM
+        assert haim_api.HAIMDecoder is haim.HAIMDecoder
+        assert haim_api.get_performance_metrics is \
+            metrics.get_performance_metrics
         leaked = sorted(k for k in sys.modules if k.split(".")[0] in
                         ("jax", "multimodn_tpu", "pandas", "sklearn")
                         and sys.modules[k] is not None)

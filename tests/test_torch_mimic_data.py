@@ -11,16 +11,31 @@ scaler is bit-equal to scikit-learn's, ``tests/test_torch_kfold.py``). On
 the real-CSV path the JAX package parses the raw file with pandas, whose float parser
 can differ from a correctly rounded one by 1 float64 ulp; there X may
 differ by at most 1 float32 ulp (and in this test's file it does not).
+
+Each package reads a cache file through one of two readers: the JAX
+package through its native reader or, where that fails, ``pd.read_csv``
+(which reads a column of integers as int64); the port through its native
+reader or its Python parse, which mirrors pandas. Every test that reads a
+cache runs once per ``reader`` with both packages pinned to it: the JAX
+package's ``read_csv_f64`` replaced by the port's binding of the same
+``native/csv.cpp`` (so no test builds the JAX package's in-place library)
+or made to raise, the port's ``native.get_lib`` left alone or made to
+raise.
 """
+import contextlib
 import os
+import warnings
 
 import numpy as np
 import pytest
 
 from multimodn_tpu.data import mimic as jmimic
+from multimodn_tpu.data import native as jnative
 from multimodn_tpu.data import synth as jsynth
 from multimodn_tpu_torch.data import mimic as tmimic
+from multimodn_tpu_torch.data import native as tnative
 from multimodn_tpu_torch.data import synth as tsynth
+from multimodn_tpu_torch.data import table as ttable
 from multimodn_tpu_torch.data.table import format_column, read_csv, write_csv
 
 SOURCES = ["de", "vd", "ts_ce"]
@@ -33,13 +48,62 @@ def _synthetic_only(monkeypatch):
     monkeypatch.delenv("MULTIMODN_MIMIC_EMBED_PATH", raising=False)
 
 
+READERS = ("native", "python")
+
+
+def _refuse(path):
+    raise RuntimeError("this test pins the JAX package to pd.read_csv")
+
+
+def _no_library():
+    raise OSError("this test pins the port to its Python parse")
+
+
+@contextlib.contextmanager
+def pinned(reader):
+    """Both packages read cache files through ``reader``: ``native`` (the
+    port's library, built at need; the case skips where it cannot be
+    built) or ``python`` (pandas in the JAX package, the Python parse in
+    the port)."""
+    with pytest.MonkeyPatch.context() as mp, warnings.catch_warnings():
+        if reader == "native":
+            try:
+                tnative.get_lib()
+            except (OSError, RuntimeError) as exc:
+                pytest.skip(f"the port's native library cannot be built "
+                            f"here: {exc}")
+            mp.setattr(jnative, "read_csv_f64", tnative.read_csv_f64)
+        else:
+            mp.setattr(jnative, "read_csv_f64", _refuse)
+            mp.setattr(tnative, "get_lib", _no_library)
+            warnings.filterwarnings("ignore", "reading the MIMIC cache",
+                                    RuntimeWarning)
+        mp.setattr(ttable, "READERS", {})
+        yield
+        took = "native" if reader == "native" else "python: the native"
+        assert all(r.startswith(took) for r in ttable.READERS.values())
+
+
+@pytest.fixture(scope="module", params=READERS)
+def reader(request):
+    return request.param
+
+
+@pytest.fixture
+def pin(reader):
+    """The test's reads go through ``reader`` in both packages."""
+    with pinned(reader):
+        yield reader
+
+
 @pytest.fixture(scope="module")
-def jax_root(tmp_path_factory):
-    """One cache root built by the JAX package, shared by the dataset
-    tests."""
-    root = str(tmp_path_factory.mktemp("jax_cache"))
-    for targets in (TARGETS, ["Cardiomegaly"]):
-        jmimic.build_mimic_cache(targets, SOURCES, root, SYNTH)
+def jax_root(tmp_path_factory, reader):
+    """One cache root built by the JAX package through ``reader``, shared
+    by the dataset tests of that reader."""
+    root = str(tmp_path_factory.mktemp(f"jax_cache_{reader}"))
+    with pinned(reader):
+        for targets in (TARGETS, ["Cardiomegaly"]):
+            jmimic.build_mimic_cache(targets, SOURCES, root, SYNTH)
     return root
 
 
@@ -76,10 +140,11 @@ def test_synthetic_constants_match():
 
 @pytest.mark.parametrize("targets", [TARGETS, ["Cardiomegaly"]],
                          ids=["joint", "single"])
-def test_caches_are_byte_equal(tmp_path, targets):
+def test_caches_are_byte_equal(tmp_path, pin, targets):
     """Built in separate roots, both packages write the same directory
     layout and the same bytes (a single-target cache derives from the joint
-    one in both)."""
+    one in both, through the reader pinned: the integer columns read by
+    pandas and by the Python parse are written as integers)."""
     jdir = jmimic.build_mimic_cache(targets, SOURCES, str(tmp_path / "j"),
                                     SYNTH)
     tdir = tmimic.build_mimic_cache(targets, SOURCES, str(tmp_path / "t"),
@@ -90,10 +155,14 @@ def test_caches_are_byte_equal(tmp_path, targets):
         with open(os.path.join(jdir, name), "rb") as a, \
                 open(os.path.join(tdir, name), "rb") as b:
             assert a.read() == b.read(), name
+    if len(targets) == 1:
+        with open(os.path.join(tdir, "data.csv")) as f:
+            last = f.readlines()[1].rstrip().rsplit(",", 2)[1:]
+        assert all(("." in v) == (pin == "native") for v in last), last
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])
-def test_cache_of_one_package_serves_the_other(tmp_path, writer):
+def test_cache_of_one_package_serves_the_other(tmp_path, pin, writer):
     root = str(tmp_path)
     build = jmimic.build_mimic_cache if writer == "jax" \
         else tmimic.build_mimic_cache
@@ -111,7 +180,8 @@ def test_cache_of_one_package_serves_the_other(tmp_path, writer):
     for path, mtime in stamp.items():
         assert os.stat(path).st_mtime_ns == mtime, path
     _bits_equal(tds.X, jds.X)
-    assert np.array_equal(tds.y, jds.y)
+    assert tds.y.dtype == jds.y.dtype and np.array_equal(tds.y, jds.y)
+    assert tds.haim_ids().dtype == jds.haim_ids().dtype
     assert np.array_equal(tds.haim_ids(), jds.haim_ids())
 
 
@@ -136,7 +206,7 @@ DATASET_CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(DATASET_CASES))
-def test_mimic_dataset_matches_jax(jax_root, case):
+def test_mimic_dataset_matches_jax(jax_root, pin, case):
     kw = DATASET_CASES[case]
     jds = jmimic.MIMICDataset(SOURCES, cache_root=jax_root,
                               synthetic_kwargs=SYNTH, **kw)
@@ -144,6 +214,8 @@ def test_mimic_dataset_matches_jax(jax_root, case):
                               synthetic_kwargs=SYNTH, **kw)
     _bits_equal(tds.X, jds.X)
     assert tds.y.dtype == jds.y.dtype and np.array_equal(tds.y, jds.y)
+    assert tds.y.dtype == (np.float64 if pin == "native" else np.int64)
+    assert tds.haim_ids().dtype == jds.haim_ids().dtype
     assert np.array_equal(tds.haim_ids(), jds.haim_ids())
     assert tds.partitions == jds.partitions == [10, 1024, 99]
     assert tds.features == jds.features
@@ -153,7 +225,7 @@ def test_mimic_dataset_matches_jax(jax_root, case):
     assert len(tds) == len(jds) and np.array_equal(tds[3][0], jds[3][0])
 
 
-def test_load_mimic_data_matches_jax(jax_root):
+def test_load_mimic_data_matches_jax(jax_root, pin):
     jd, jl, jf, jp = jmimic.load_mimic_data(TARGETS, SOURCES,
                                             cache_root=jax_root,
                                             synthetic_kwargs=SYNTH)
@@ -165,7 +237,7 @@ def test_load_mimic_data_matches_jax(jax_root):
     assert tf == jf and tp == jp
 
 
-def test_patient_split_table_matches_jax(jax_root):
+def test_patient_split_table_matches_jax(jax_root, pin):
     jds = jmimic.MIMICDataset(SOURCES, ["Cardiomegaly"], cache_root=jax_root,
                               synthetic_kwargs=SYNTH)
     tds = tmimic.MIMICDataset(SOURCES, ["Cardiomegaly"], cache_root=jax_root,
@@ -182,7 +254,7 @@ def test_patient_split_table_matches_jax(jax_root):
     ("demo", "no demographic"),
     (["vd_0", "nope_1"], "unknown feature columns"),
 ])
-def test_put_none_key_errors(jax_root, features, match):
+def test_put_none_key_errors(jax_root, pin, features, match):
     sources = ["vd", "ts_ce"] if features == "demo" else SOURCES
     for mod in (jmimic, tmimic):
         with pytest.raises(KeyError, match=match):
@@ -192,7 +264,7 @@ def test_put_none_key_errors(jax_root, features, match):
 
 
 @pytest.mark.parametrize("balanced", [None, 0])
-def test_random_split_lists_equal(jax_root, balanced):
+def test_random_split_lists_equal(jax_root, pin, balanced):
     jds = jmimic.MIMICDataset(SOURCES, TARGETS, cache_root=jax_root,
                               synthetic_kwargs=SYNTH)
     tds = tmimic.MIMICDataset(SOURCES, TARGETS, cache_root=jax_root,
@@ -229,7 +301,7 @@ def _write_real_csv(path, rng):
         f.write("\n".join(lines) + "\n")
 
 
-def test_real_csv_path(tmp_path, monkeypatch):
+def test_real_csv_path(tmp_path, monkeypatch, pin):
     csv_path = tmp_path / "embeddings.csv"
     _write_real_csv(csv_path, np.random.default_rng(0))
     monkeypatch.setenv("MULTIMODN_MIMIC_EMBED_PATH", str(csv_path))

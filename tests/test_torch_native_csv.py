@@ -100,8 +100,8 @@ def test_read_numeric_csv_is_bit_equal_to_the_python_parse(tmp_path, rows):
     path = _write(tmp_path, text)
     table._NUMERIC_CACHE.clear()
     assert native.read_csv_f64(path) is not None     # the native path
-    header, values = table.read_numeric_csv(path)
-    py_values, py_header = table._parse_numeric(path)
+    header, values, _ = table.read_numeric_csv(path)
+    py_values, py_header, _ = table._parse_numeric(path)
     assert header == py_header
     assert _same(values, py_values.T)
 
@@ -118,7 +118,7 @@ def test_write_csv_files_read_bit_equal(tmp_path):
                               rng.random(200))}
     path = str(tmp_path / "data.csv")
     table.write_csv(path, cols)
-    header, values = table.read_numeric_csv(path)
+    header, values, _ = table.read_numeric_csv(path)
     assert header == list(cols)
     assert _same(values, table._parse_numeric(path)[0].T)
     assert np.array_equal(values[0], cols["haim_id"].astype(np.float64))
@@ -130,8 +130,8 @@ def test_files_the_native_reader_refuses_take_the_python_parse(tmp_path,
                                                               name):
     path = _write(tmp_path, FILES[name])
     assert native.read_csv_f64(path) is None
-    header, values = table.read_numeric_csv(path)
-    py_values, py_header = table._parse_numeric(path)
+    header, values, _ = table.read_numeric_csv(path)
+    py_values, py_header, _ = table._parse_numeric(path)
     assert header == py_header == ["a", "b"]
     assert _same(values, py_values.T)
     if name == "not_a_number":           # N/A is one of pandas' NaNs
@@ -145,7 +145,7 @@ def test_na_reads_as_nan_as_the_native_reader_decides(tmp_path):
     refuses it; the native reader, which decides in the JAX package too,
     reads it as NaN."""
     path = _write(tmp_path, "a,b\n1,na\n2,3\n")
-    _header, values = table.read_numeric_csv(path)
+    _header, values, _ = table.read_numeric_csv(path)
     assert np.isnan(values[1, 0]) and values[1, 1] == 3.0
     with pytest.raises(ValueError):
         table._parse_numeric(path)
@@ -156,7 +156,7 @@ def test_minus_nan_reads_as_nan_with_its_sign(tmp_path):
     and keeps the sign, as the JAX package's reader does."""
     path = _write(tmp_path, "a\n-nan\nnan\n")
     assert native.read_csv_f64(path) is not None
-    _header, values = table.read_numeric_csv(path)
+    _header, values, _ = table.read_numeric_csv(path)
     assert np.isnan(values).all()
     assert np.signbit(values[0, 0]) and not np.signbit(values[0, 1])
     assert _same(values, table._parse_numeric(path)[0].T)
@@ -184,6 +184,27 @@ def test_the_parse_is_kept_per_file(tmp_path, monkeypatch):
     _write(tmp_path, "a,b\n1,2\n3,4\n")
     assert table.read_numeric_csv(path)[1].shape == (2, 2)
     assert calls == [path, path]
+
+
+def test_the_parse_is_kept_per_reader(tmp_path, monkeypatch):
+    """A file read natively and through the Python parse (the library
+    unavailable) keeps both readings, and neither serves the other: only
+    the Python parse returns the columns pandas reads as int64."""
+    path = _write(tmp_path, "a,b,c\n1,2.5,-3\n4,,5\n")
+    header, values, integers = table.read_numeric_csv(path)
+    assert header == ["a", "b", "c"] and integers == {}
+    monkeypatch.setattr(table, "READERS", {})
+    monkeypatch.setattr(native, "get_lib", lambda: (_ for _ in ()).throw(
+        OSError("no library")))
+    with pytest.warns(RuntimeWarning, match="Python parser"):
+        _h, py_values, py_integers = table.read_numeric_csv(path)
+    assert sorted(py_integers) == ["a", "c"]
+    assert py_integers["a"].dtype == np.int64
+    assert np.array_equal(py_integers["c"], [-3, 5])
+    assert _same(values, py_values) and py_values is not values
+    monkeypatch.undo()
+    assert table.read_numeric_csv(path)[1] is values
+    assert len(table._NUMERIC_CACHE) == 2
 
 
 def _python_only(monkeypatch):
@@ -214,19 +235,30 @@ def test_mimic_cache_loads_bit_equal_to_the_python_parse(tmp_path,
 
 def test_single_target_cache_is_byte_equal_either_way(tmp_path, monkeypatch):
     """The single-target cache is derived from the two-target one through
-    ``read_numeric_csv``: it must be the same file whichever parse read
-    it."""
+    ``read_numeric_csv``. Each reader writes what the JAX package's
+    reader of its kind writes (``tests/test_torch_mimic_data.py`` holds
+    the files byte for byte): the native read every column as float64, the
+    Python parse the columns of integers as int64, as ``pd.read_csv``
+    does. So the files hold the same numbers, and they are byte-equal once
+    the Python parse's integer columns are written as floats."""
     monkeypatch.delenv("MULTIMODN_MIMIC_EMBED_PATH", raising=False)
-    texts = []
+    paths = []
     for name in ("native", "python"):
         if name == "python":
             table._NUMERIC_CACHE.clear()
             _python_only(monkeypatch)
         cache = tmimic.build_mimic_cache(["Cardiomegaly"], SOURCES,
                                          str(tmp_path / name), SYNTH)
-        with open(os.path.join(cache, "data.csv")) as f:
-            texts.append(f.read())
-    assert texts[0] == texts[1]
+        paths.append(os.path.join(cache, "data.csv"))
+    fast, slow = table.read_csv(paths[0]), table.read_csv(paths[1])
+    integers = [c for c, v in slow.items() if v.dtype.kind == "i"]
+    assert {"Cardiomegaly", "haim_id", "de_1_1"} <= set(integers)
+    assert all(fast[c].dtype == np.float64 for c in fast)
+    as_floats = str(tmp_path / "as_floats.csv")
+    table.write_csv(as_floats, {c: v.astype(np.float64) for c, v in
+                                slow.items()})
+    with open(paths[0]) as a, open(as_floats) as b:
+        assert a.read() == b.read()
 
 
 def test_cache_read_without_a_compiler(tmp_path, monkeypatch):
