@@ -1,0 +1,6 @@
+"""The share of the traced training slice in which neither a kernel nor a
+copy runs on the card."""
+
+
+def read(r):
+    return 100.0 * r.view.idle_share() if r.counts.get("steps") else None
