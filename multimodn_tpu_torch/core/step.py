@@ -41,6 +41,7 @@ from multimodn_tpu_torch.core.tree import (
     tree_map,
     tree_unflatten,
 )
+from multimodn_tpu_torch.utils.profiling import span
 
 STATIC_ORDER_MESSAGE = (
     "presence_penalty needs a STATIC modality order (no shuffle_mode, "
@@ -361,13 +362,15 @@ def train_batch(loss_fn, optimizer, params, opt_state, batch, generator,
                               generator, offset, n_real, seq=seq, perm=perm)
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
     leaves = tree_leaves(live)
-    loss, aux = loss_fn(live, *batch, generator, offset, True, seq=seq,
-                        perm=perm)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = tree_unflatten(params, [
-        torch.zeros_like(p) if g is None else g
-        for p, g in zip(leaves, grads)])
-    with torch.no_grad():
+    with span("step.forward"):
+        loss, aux = loss_fn(live, *batch, generator, offset, True, seq=seq,
+                            perm=perm)
+    with span("step.backward"):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = tree_unflatten(params, [
+            torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)])
+    with torch.no_grad(), span("step.optimizer"):
         opt_state = gated_update(optimizer, grads, opt_state, params,
                                  enc_gates=aux["enc_gates"])
     return opt_state, tree_map(lambda t: None if t is None else t.detach(),
@@ -391,14 +394,15 @@ def run_train_epoch(loss_fn, optimizer, params, opt_state, batches,
     summed across the data axis once, at the end."""
     ys: List[dict] = []
     for b, (batch, n_real) in enumerate(batches):
-        opt_state, aux = train_batch(
-            loss_fn, optimizer, params, opt_state, batch, generator, offset,
-            seq=None if seqs is None else seqs[b],
-            perm=None if perms is None else next(perms), dp=dp,
-            n_real=n_real)
-        offset += n_real
-        ys.append({k: aux[k] for k in GRID_KEYS + ("loss", "global_err",
-                                                   "global_sc")})
+        with span("train.step", rows=n_real):
+            opt_state, aux = train_batch(
+                loss_fn, optimizer, params, opt_state, batch, generator,
+                offset, seq=None if seqs is None else seqs[b],
+                perm=None if perms is None else next(perms), dp=dp,
+                n_real=n_real)
+            offset += n_real
+            ys.append({k: aux[k] for k in GRID_KEYS + (
+                "loss", "global_err", "global_sc")})
     batch_log = torch.stack([torch.stack([y["loss"], y["global_err"],
                                           y["global_sc"]]) for y in ys])
     sums = _grid_sums(ys)

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from multimodn_tpu_torch.data.dataset import Subset
+from multimodn_tpu_torch.utils.profiling import span
 
 
 def _materialize(dataset) -> Tuple[List[np.ndarray], np.ndarray,
@@ -147,10 +148,11 @@ class ArrayLoader:
         """``(data tuple, targets, sample_mask)`` as numpy arrays, built
         once per order."""
         if self._host is None:
-            self._host = (tuple(self._pad_stack(x) for x in self._xs),
-                          self._pad_stack(self._y),
-                          self._pad_stack(np.ones(self.n_samples,
-                                                  np.float32)))
+            with span("loader.order"):
+                self._host = (tuple(self._pad_stack(x) for x in self._xs),
+                              self._pad_stack(self._y),
+                              self._pad_stack(np.ones(self.n_samples,
+                                                      np.float32)))
         return self._host
 
     def stacks(self, device):
@@ -158,11 +160,16 @@ class ArrayLoader:
         built once per order and device."""
         device = torch.device(device)
         if device not in self._stacks:
-            data, targets, mask = self.host_stacks()
-            self._stacks[device] = (
-                tuple(torch.as_tensor(d, device=device) for d in data),
-                torch.as_tensor(targets, device=device),
-                torch.as_tensor(mask, device=device))
+            with span("loader.stacks"):
+                data, targets, mask = self.host_stacks()
+                with span("loader.to_device") as s:
+                    s.set(bytes=sum(a.nbytes for a in (*data, targets,
+                                                       mask)))
+                    self._stacks[device] = (
+                        tuple(torch.as_tensor(d, device=device)
+                              for d in data),
+                        torch.as_tensor(targets, device=device),
+                        torch.as_tensor(mask, device=device))
         return self._stacks[device]
 
 

@@ -69,6 +69,7 @@ from multimodn_tpu_torch.core.tree import tree_leaves, tree_map, \
 from multimodn_tpu_torch.interop import adapt_loader, adapt_optimizer
 from multimodn_tpu_torch.ops.fused_chain import ChainSpec, fused_chain_forward
 from multimodn_tpu_torch.optim import Optimizer
+from multimodn_tpu_torch.utils.profiling import span
 from multimodn_tpu_torch.utils.summary import summarize_model
 
 CHAIN_MODES = ("auto", "unrolled", "scan", "switch")
@@ -633,17 +634,19 @@ class MultiModN:
                 "fused_forward broadcasts ONE initial-state row; a "
                 "multi-row StaticInitState bank assigns different rows per "
                 "sample — use predict()/predict_proba() for those models.")
-        if self._chain_spec is None:
-            self._chain_spec = ChainSpec(self.encoders, self.decoders,
-                                         self.state_size)
-        packed, valid = self._packed_request(x, self._chain_spec)
-        # One gather per call on a model-sharded mesh: the kernel reads
-        # whole weights, packed for the launch in fused_chain_forward.
-        params = self._whole_params()
-        init_row = self.init_state.apply(
-            params["init_state"], 1, 0)[0].contiguous()
-        return fused_chain_forward(self._chain_spec, params, packed, valid,
-                                   init_row)
+        with span("request") as s:
+            if self._chain_spec is None:
+                self._chain_spec = ChainSpec(self.encoders, self.decoders,
+                                             self.state_size)
+            packed, valid = self._packed_request(x, self._chain_spec)
+            s.set(rows=packed.shape[0])
+            # One gather per call on a model-sharded mesh: the kernel reads
+            # whole weights, packed for the launch in fused_chain_forward.
+            params = self._whole_params()
+            init_row = self.init_state.apply(
+                params["init_state"], 1, 0)[0].contiguous()
+            return fused_chain_forward(self._chain_spec, params, packed,
+                                       valid, init_row)
 
     def _packed_request(self, x: Sequence, spec: ChainSpec):
         """A request's modalities as the kernel reads them: packed into one
@@ -654,21 +657,27 @@ class MultiModN:
         if len(x) != len(spec.encoders):
             raise ValueError(f"expected {len(spec.encoders)} modality "
                              f"arrays, got {len(x)}")
-        if any(torch.is_tensor(m) for m in x):
-            packed = spec.pack_data([
-                torch.as_tensor(m, dtype=torch.float32, device=self.device)
-                .reshape(len(m), -1) for m in x])
-        else:
-            host = [np.asarray(m, np.float32) for m in x]
-            packed = torch.as_tensor(spec.pack_data(
-                [m.reshape(len(m), -1) for m in host]), device=self.device)
-        E = len(spec.encoders)
-        nan_counts = torch.zeros((packed.shape[0], E + 1),
-                                 device=packed.device).index_add_(
-            1, spec.segment_ids(packed.device), torch.isnan(packed).float())
-        valid = (nan_counts[:, :E] == 0).float()
-        # Out of place: a one-piece pack may be the caller's own buffer.
-        return torch.nan_to_num(packed), valid
+        with span("request.pack") as s:
+            if any(torch.is_tensor(m) for m in x):
+                packed = spec.pack_data([
+                    torch.as_tensor(m, dtype=torch.float32,
+                                    device=self.device)
+                    .reshape(len(m), -1) for m in x])
+            else:
+                host = [np.asarray(m, np.float32) for m in x]
+                packed = torch.as_tensor(spec.pack_data(
+                    [m.reshape(len(m), -1) for m in host]),
+                    device=self.device)
+            s.set(bytes=packed.nbytes)
+        with span("request.mask"):
+            E = len(spec.encoders)
+            nan_counts = torch.zeros((packed.shape[0], E + 1),
+                                     device=packed.device).index_add_(
+                1, spec.segment_ids(packed.device),
+                torch.isnan(packed).float())
+            valid = (nan_counts[:, :E] == 0).float()
+            # Out of place: a one-piece pack may be the caller's own buffer.
+            return torch.nan_to_num(packed), valid
 
     @torch.no_grad()
     def get_states(self, loader) -> List[np.ndarray]:

@@ -15,6 +15,8 @@ import shutil
 import subprocess
 import tempfile
 
+from multimodn_tpu_torch.utils.profiling import count
+
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC_DIR)),
@@ -61,6 +63,7 @@ def build_library(source_name: str) -> ctypes.CDLL:
             with open(lib_path + ".log", "w") as f:
                 f.write(proc.stdout + proc.stderr)
             os.replace(tmp, lib_path)
+            count("kernels.built")
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)

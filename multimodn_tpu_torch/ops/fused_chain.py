@@ -46,6 +46,7 @@ import torch
 from multimodn_tpu_torch.core.nn import activation_name
 from multimodn_tpu_torch.decoders.decoders import ClassDecoder, MLPDecoder
 from multimodn_tpu_torch.encoders.mlp import MIMICMLPEncoder, MLPEncoder
+from multimodn_tpu_torch.utils.profiling import span
 
 # Must match csrc/fused_chain.cu.
 ACT_CODES = {"identity": 0, "none": 0, "relu": 1, "sigmoid": 2, "tanh": 3,
@@ -826,14 +827,18 @@ def fused_chain_forward(spec: ChainSpec, params: dict, data, valid,
     if device.type != "cuda":
         raise ValueError(f"fused_chain_forward runs on cpu or cuda, not "
                          f"{device}")
-    layers = spec.layer_params(params)
-    _check_inputs(spec, layers, data, valid, init_row)
-    if not torch.is_tensor(data):
-        data = list(data)
-        n_sm, _max_smem = FUSED_CHAIN.card(device)
-        if not spec.inline_levels(valid.shape[0], n_sm):
-            data = spec.pack_data(data)
-    return FUSED_CHAIN.launch(spec, layers, data, valid, init_row)
+    with span("k1.enqueue") as s:
+        launches = FUSED_CHAIN.launches
+        layers = spec.layer_params(params)
+        _check_inputs(spec, layers, data, valid, init_row)
+        if not torch.is_tensor(data):
+            data = list(data)
+            n_sm, _max_smem = FUSED_CHAIN.card(device)
+            if not spec.inline_levels(valid.shape[0], n_sm):
+                data = spec.pack_data(data)
+        out = FUSED_CHAIN.launch(spec, layers, data, valid, init_row)
+        s.set(launches=FUSED_CHAIN.launches - launches)
+    return out
 
 
 def _chain_forward(fn, encoders, decoders, state_size: int):

@@ -26,8 +26,8 @@ result is copied back to the tensor's device. That is the transport of the
 work before and after stays on the card, and a collective that fails
 raises.
 
-Each call runs under ``utils.profiling.annotate("collective")``, so a
-profiler trace shows the time spent in collectives.
+Each call runs under ``utils.profiling.annotate("collective")``, a span,
+so ``utils.profiling.trace`` shows the time spent in collectives.
 """
 from __future__ import annotations
 

@@ -1,52 +1,212 @@
 """Tracing and timing hooks (PyTorch twin of ``multimodn_tpu/utils/
-profiling.py``).
+profiling.py``), and the port's one recorder of spans and counters.
 
+- ``span(name, **attrs)``: a span of the program, recorded in memory while
+  recording is on: inside ``recording()``, inside ``trace(logdir)``, and
+  while any ``torch.profiler`` session runs. Off, it costs two flag checks
+  and a shared no-op context: no clock read, no profiler range. Only inside
+  ``trace`` does a span also open a ``record_function`` range; under any
+  other profiler session it stays off the profiler's event list, which
+  would count a mirrored range as device work.
+- ``spans()``, ``reset()``, ``self_ns(s, spans)``, ``clock_offset_ns()``:
+  the recorded spans in order of recording (each as it ends), emptying
+  them, a span's self time, and the offset of their clock from
+  ``time.perf_counter_ns``.
+- ``counters()``: the kernels' launch counts and the kernel builds.
 - ``trace(logdir)``: a ``torch.profiler`` session over CPU and, where a GPU
   is present, CUDA activity, written as a Chrome trace into ``logdir``.
-- ``annotate(name)``: a named region in that trace, and an NVTX range on a
-  machine with CUDA.
+- ``annotate(name)``: the JAX package's name for ``span``.
 - ``sync(tree)``: wait for the work that produces every CUDA tensor of a
   tree.
 - ``EpochTimer``: wall-clock epoch timing with optional logging, the
   reference's ``log_interval`` cadence.
+
+Span times are Unix-epoch nanoseconds, the clock of ``torch.profiler``'s
+events (``trace_start_ns()`` plus an event's ``time_range`` in µs):
+``time.perf_counter_ns()`` plus an offset fixed once, when recording
+first starts, so a step of the wall clock cannot reorder spans.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
-from typing import Callable, Optional
+from time import perf_counter_ns
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 from multimodn_tpu_torch.core.tree import tree_leaves
+
+_recording = 0          # depth of recording() and trace() blocks
+_tracing = 0            # depth of trace() blocks: spans open ranges there
+_offset: Optional[int] = None
+_spans: list = []
+_ids = itertools.count(1)
+_local = threading.local()
+_counts = {"kernels.built": 0}
+
+
+class Span:
+    """One recorded span: ``id``, ``parent`` (the enclosing span's id, or
+    None), ``root`` (the outermost enclosing span's id, its own for a
+    root), ``name``, ``start_ns`` and ``end_ns`` on the profiler's clock,
+    and ``attrs``. ``set(**attrs)`` adds attributes inside the block."""
+
+    __slots__ = ("id", "parent", "root", "name", "start_ns", "end_ns",
+                 "attrs", "_range")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name, self.attrs = name, attrs
+        self.parent = self.end_ns = self._range = None
+
+    def __enter__(self):
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        self.id = next(_ids)
+        if stack:
+            self.parent, self.root = stack[-1].id, stack[-1].root
+        else:
+            self.root = self.id
+        stack.append(self)
+        if _tracing:
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        self.start_ns = perf_counter_ns() + clock_offset_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.end_ns = perf_counter_ns() + _offset
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        _local.stack.pop()
+        _spans.append(self)
+        return False
+
+    def set(self, **attrs):
+        self.attrs.update(attrs)
+
+    @property
+    def duration_ns(self) -> int:
+        return self.end_ns - self.start_ns
+
+
+class _Off:
+    """The shared context of a span while recording is off."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **attrs):
+        pass
+
+
+_OFF = _Off()
+
+
+def span(name: str, **attrs):
+    """A span of the program named ``name``, with ``attrs``; see the
+    module's docstring for when it records."""
+    if not (_recording or _autograd_profiler._is_profiler_enabled):
+        return _OFF
+    return Span(name, attrs)
+
+
+# The JAX package's name for a named region of the trace.
+annotate = span
+
+
+@contextlib.contextmanager
+def recording():
+    """Record spans inside the block, with or without a profiler."""
+    global _recording
+    clock_offset_ns()
+    _recording += 1
+    try:
+        yield
+    finally:
+        _recording -= 1
+
+
+def spans() -> List[Span]:
+    """The recorded spans, in order of recording (each as it ends)."""
+    return list(_spans)
+
+
+def reset() -> None:
+    """Forget the recorded spans."""
+    _spans.clear()
+
+
+def clock_offset_ns() -> int:
+    """Unix-epoch ns minus ``time.perf_counter_ns()``: a span's time less
+    this is on ``time.perf_counter``'s clock (times 1e-9 s)."""
+    global _offset
+    if _offset is None:
+        before = perf_counter_ns()
+        wall = time.time_ns()
+        _offset = wall - (before + perf_counter_ns()) // 2
+    return _offset
+
+
+def self_ns(s: Span, recorded: List[Span]) -> int:
+    """``s``'s duration less the part of it that its children in
+    ``recorded`` cover."""
+    covered, reach = 0, s.start_ns
+    for start, end in sorted((c.start_ns, c.end_ns) for c in recorded
+                             if c.parent == s.id):
+        start, end = max(start, reach), min(end, s.end_ns)
+        if end > start:
+            covered += end - start
+            reach = end
+    return s.duration_ns - covered
+
+
+def count(name: str) -> None:
+    """Add one to the counter ``name`` (one of ``counters()``'s own)."""
+    _counts[name] += 1
+
+
+def counters() -> dict:
+    """``k1.launches`` and ``k2.launches`` (``FUSED_CHAIN.launches``,
+    ``FUSED_ADAM.launches``) and ``kernels.built``: the ``nvcc`` builds run
+    by ``ops.build.build_library``."""
+    from multimodn_tpu_torch.ops.fused_adam import FUSED_ADAM
+    from multimodn_tpu_torch.ops.fused_chain import FUSED_CHAIN
+    return {"k1.launches": FUSED_CHAIN.launches,
+            "k2.launches": FUSED_ADAM.launches, **_counts}
 
 
 @contextlib.contextmanager
 def trace(logdir: str):
     """Profile everything run inside the block and write the trace to
     ``logdir/trace.json`` (Chrome trace format, readable by
-    ``chrome://tracing`` and Perfetto)."""
+    ``chrome://tracing`` and Perfetto). The program's spans are recorded
+    and appear in the trace as ranges."""
+    global _tracing
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
+    with recording(), profile(activities=activities) as prof:
+        _tracing += 1
+        try:
+            yield prof
+        finally:
+            _tracing -= 1
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-@contextlib.contextmanager
-def annotate(name: str):
-    """A named region, visible in ``trace``'s output and, on a machine with
-    CUDA, to NVTX-reading tools."""
-    with contextlib.ExitStack() as stack:
-        stack.enter_context(torch.profiler.record_function(name))
-        if torch.cuda.is_available():
-            stack.enter_context(torch.cuda.nvtx.range(name))
-        yield
 
 
 def sync(tree) -> None:
