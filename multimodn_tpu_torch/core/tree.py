@@ -23,8 +23,21 @@ def tree_map(fn: Callable, tree, *rest):
 def tree_leaves(tree) -> List:
     """Leaves in ``tree_map`` order."""
     out: List = []
-    tree_map(out.append, tree)
+    _collect(tree, out)
     return out
+
+
+def _collect(tree, out: List) -> None:
+    # tree_map's walk without building the mapped tree: a step's optimizer
+    # flattens several trees of every parameter leaf.
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            _collect(tree[k], out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _collect(v, out)
+    else:
+        out.append(tree)
 
 
 def tree_unflatten(like, leaves: Iterable):

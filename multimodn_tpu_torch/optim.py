@@ -27,6 +27,7 @@ import torch
 from multimodn_tpu_torch.core.nn import resolve_dtype
 from multimodn_tpu_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 from multimodn_tpu_torch.ops import fused_adam as fa
+from multimodn_tpu_torch.ops import fused_adam_fp32 as fa32
 
 
 def _device(params) -> torch.device:
@@ -109,7 +110,14 @@ class Adam(Optimizer):
     ``torch.bfloat16``; None keeps the parameters' fp32, torch's math). A
     step reads each moment into the gradient's dtype, updates it there and
     stores it back in ``state_dtype`` (JAX ``optim.py:96-110``), which cuts
-    the state's bytes at a small, not torch-exact, numerical difference."""
+    the state's bytes at a small, not torch-exact, numerical difference.
+
+    ``fused_apply`` updates every leaf and the moments in place through
+    ``fused_adam_fp32.multi_leaf_update``: the hand-written kernel on a CUDA
+    model, gated or not, and its plain version on a CPU model, both equal
+    to ``update`` followed by adding the updates. ``update`` returns the
+    updates without touching the parameters, for callers that apply
+    updates themselves."""
 
     def __init__(self, learning_rate: float,
                  betas: Tuple[float, float] = (0.9, 0.999),
@@ -127,25 +135,35 @@ class Adam(Optimizer):
                 "t": t, "t_enc": t_enc}
 
     def _leaf(self, c12, gate, g, m_stored, v_stored):
-        lr, b1, b2, eps = self.lr, self.b1, self.b2, self.eps
-        c1, c2 = c12[0], c12[1]
-        m, v = m_stored.to(g.dtype), v_stored.to(g.dtype)
-        if gate is None:
-            m_new = b1 * m + (1 - b1) * g
-            v_new = b2 * v + (1 - b2) * g * g
-            upd = -lr * (m_new / c1) / (torch.sqrt(v_new / c2) + eps)
-        else:
-            # m + gate*(1-b1)*(g-m) == gate ? b1*m + (1-b1)*g : m
-            m_new = m + gate * (1 - b1) * (g - m)
-            v_new = v + gate * (1 - b2) * (g * g - v)
-            upd = -lr * gate * (m_new / c1) / (torch.sqrt(v_new / c2) + eps)
-        return upd, m_new.to(m_stored.dtype), v_new.to(v_stored.dtype)
+        return fa32.moment_update(g, m_stored, v_stored, c12, gate, self.lr,
+                                  self.b1, self.b2, self.eps)
 
     def update(self, grads, state, params=None, enc_gates=None):
         (upd, m, v), t, t_enc = _drive(
             self.b1, self.b2, state, enc_gates, self._leaf,
             [grads, state["m"], state["v"]], 3)
         return upd, {"m": m, "v": v, "t": t, "t_enc": t_enc}
+
+    def fused_apply(self, grads, state, params, enc_gates=None,
+                    cross_rank=None):
+        """Update ``params`` and the moments ``state["m"]``, ``state["v"]``
+        in place; returns the state with the new step counts. Every leaf
+        goes into one ``fused_adam_fp32.multi_leaf_update`` call: one kernel
+        launch per 512 leaves on a CUDA model (a gradient that is not
+        contiguous, such as a permuted view, is copied first).
+        ``cross_rank`` is taken and ignored: an elementwise update needs no
+        reduction across a mesh's ranks."""
+        leaves = []
+
+        def op(c12, gate, p, g, m, v):
+            leaves.append((p, g.contiguous(), m, v, c12, gate))
+            return ()
+
+        _, t, t_enc = _drive(self.b1, self.b2, state, enc_gates, op,
+                             [params, grads, state["m"], state["v"]], 0)
+        fa32.multi_leaf_update(leaves, lr=self.lr, b1=self.b1, b2=self.b2,
+                               eps=self.eps)
+        return dict(state, t=t, t_enc=t_enc)
 
 
 class Adam8bit(Optimizer):

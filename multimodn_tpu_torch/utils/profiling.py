@@ -179,13 +179,16 @@ def count(name: str) -> None:
 
 
 def counters() -> dict:
-    """``k1.launches`` and ``k2.launches`` (``FUSED_CHAIN.launches``,
-    ``FUSED_ADAM.launches``) and ``kernels.built``: the ``nvcc`` builds run
-    by ``ops.build.build_library``."""
+    """``k1.launches``, ``k2.launches`` and ``k3.launches``
+    (``FUSED_CHAIN.launches``, ``FUSED_ADAM.launches``,
+    ``FUSED_ADAM_FP32.launches``) and ``kernels.built``: the ``nvcc``
+    builds run by ``ops.build.build_library``."""
     from multimodn_tpu_torch.ops.fused_adam import FUSED_ADAM
+    from multimodn_tpu_torch.ops.fused_adam_fp32 import FUSED_ADAM_FP32
     from multimodn_tpu_torch.ops.fused_chain import FUSED_CHAIN
     return {"k1.launches": FUSED_CHAIN.launches,
-            "k2.launches": FUSED_ADAM.launches, **_counts}
+            "k2.launches": FUSED_ADAM.launches,
+            "k3.launches": FUSED_ADAM_FP32.launches, **_counts}
 
 
 @contextlib.contextmanager

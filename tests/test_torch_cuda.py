@@ -39,6 +39,7 @@ from multimodn_tpu_torch import encoders as tenc
 from multimodn_tpu_torch.core.tree import tree_leaves, tree_map
 from multimodn_tpu_torch.data import ArrayLoader, PartitionDataset
 from multimodn_tpu_torch.ops import fused_adam as fa
+from multimodn_tpu_torch.ops import fused_adam_fp32 as fa32
 from multimodn_tpu_torch.ops import fused_chain as fc
 
 ATOL = 1e-4
@@ -556,8 +557,8 @@ def test_multi_task_pipeline_on_cuda(cuda, tmp_path, monkeypatch):
     on the card: every MultiModN and HAIM parameter lives there, the results
     CSV (in this test's own storage, with its own cache) gets 2 MultiModN and
     2 HAIM rows per fold, and every AUROC is in [0, 1]. It launches neither
-    kernel: the protocol trains with Adam and tests through the plain chain,
-    as the JAX package's does."""
+    K1 nor K2: the protocol trains with Adam (through K3) and tests through
+    the plain chain, as the JAX package's does."""
     import csv
     from multimodn_tpu_torch.data import mimic
     from multimodn_tpu_torch.pipelines.mimic import common
@@ -1102,6 +1103,178 @@ def test_fused_adam_matches_plain_on_resnet_leaves(cuda, fmt):
             assert torch.equal(_bits(a), _bits(b))
         if stat:
             assert torch.equal(_bits(leaf[0]), _bits(orig[0]))
+
+
+def _cell_params(device):
+    """The parameter tree of the benchmark's image-model cell
+    (``mimic-cxr-resnet18``: a ResNet-18 and three MLP encoders, two
+    decoders, the initial state), 133 leaves from its reference's list."""
+    import json
+    import os
+    from benchmark.harness import weights
+    from benchmark.reference import chain
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "configs",
+                           "mimic-cxr-resnet18.json")) as f:
+        specs = chain.leaves(json.load(f))
+    return weights.make_tree(specs, 7, device)
+
+
+def _mixed_grads(params, gen):
+    """Gradients whose last axis mixes magnitudes 1e-4 apart."""
+    def grad(p):
+        g = torch.randn(p.shape, generator=gen, device=p.device)
+        if g.dim() >= 1:
+            g[..., ::2] *= 1e-4
+        return g
+    return tree_map(grad, params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state_dtype", [None, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("gated", [False, True], ids=["ungated", "gated"])
+def test_fused_adam_fp32_matches_per_leaf_update_on_cell_leaves(
+        cuda, state_dtype, gated):
+    """K3 through ``Adam.fused_apply`` against ``Adam.update`` followed by
+    ``add_`` (the per-leaf PyTorch update on the card) over 3 steps on the
+    133 leaves of the image-model cell: parameters and moments bit-equal,
+    one launch a step; gated, encoder 1 is off after the first step and
+    keeps its parameters and moments."""
+    params = _cell_params(cuda)
+    shapes = [tuple(t.shape) for t in tree_leaves(params)]
+    assert len(shapes) == 133 and fa32.launches_per_update(shapes) == 1
+    p_k, p_u = tree_map(torch.clone, params), tree_map(torch.clone, params)
+    fused = Adam(LR, state_dtype=state_dtype)
+    s_k, s_u = fused.init(p_k), fused.init(p_u)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    steps = [None, [1.0, 0.0, 1.0, 1.0], [0.0, 0.0, 1.0, 1.0]] if gated \
+        else [None] * 3
+    for i, gates in enumerate(steps):
+        g = _mixed_grads(params, gen)
+        tg = None if gates is None else torch.tensor(gates, device=cuda)
+        if i == 1:
+            off = [t.clone() for t in tree_leaves(
+                [p_k["encoders"][1], s_k["m"]["encoders"][1],
+                 s_k["v"]["encoders"][1]])]
+        before = fa32.FUSED_ADAM_FP32.launches
+        s_k = fused.fused_apply(g, s_k, p_k, enc_gates=tg)
+        torch.cuda.synchronize()
+        assert fa32.FUSED_ADAM_FP32.launches == before + 1
+        upd, s_u = fused.update(g, s_u, p_u, enc_gates=tg)
+        tree_map(lambda p, u: p.add_(u), p_u, upd)
+    torch.cuda.synchronize()
+    for a, b in zip(tree_leaves([p_k, s_k["m"], s_k["v"]]),
+                    tree_leaves([p_u, s_u["m"], s_u["v"]])):
+        assert a.dtype == b.dtype and torch.equal(
+            a.view(torch.int16 if a.element_size() == 2 else torch.int32),
+            b.view(torch.int16 if b.element_size() == 2 else torch.int32))
+    assert s_k["t"].item() == 3.0
+    if gated:
+        assert [t.item() for t in s_k["t_enc"]] == [2.0, 1.0, 3.0, 3.0]
+        for a, b in zip(off, tree_leaves(
+                [p_k["encoders"][1], s_k["m"]["encoders"][1],
+                 s_k["v"]["encoders"][1]])):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_fused_adam_fp32_many_leaves_groups_and_ragged_ends(cuda):
+    """One ``multi_leaf_update`` over 1,200 leaves (1,081 not empty: 3
+    launches of up to 512)
+    of three groups (ungated, gate 1, gate 0, each with its own bias
+    corrections), empty, 0-D and ragged leaves, leaves off the 16-byte
+    alignment (element by element), bf16 moments, and a NaN gradient:
+    bit-equal to the plain version on the card, a NaN equal to any NaN."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    c12s = [torch.tensor([1 - B1 ** t, 1 - B2 ** t], device=cuda)
+            for t in (3, 5, 2)]
+    gates = [None, torch.tensor(1.0, device=cuda),
+             torch.tensor(0.0, device=cuda)]
+    sizes = [0, 1, 3, 4, 5, 4095, 4096, 4097, 9000, 37]
+    for dtype in (torch.float32, torch.bfloat16):
+        leaves = []
+        for i in range(1200):
+            n = sizes[i % len(sizes)]
+            shape = () if i % 97 == 1 else (n,)
+            k = 1 if shape == () else n
+            # Every third leaf starts one element into its storage.
+            off = 1 if i % 3 == 0 else 0
+            p = torch.randn(k + off, generator=gen, device=cuda)[off:]
+            m = (0.1 * torch.randn(k + off, generator=gen, device=cuda)
+                 )[off:].to(dtype)
+            v = torch.rand(k + off, generator=gen, device=cuda)[off:].to(
+                dtype)
+            g = torch.randn(k, generator=gen, device=cuda)
+            leaves.append((p.reshape(shape), g.reshape(shape),
+                           m.reshape(shape), v.reshape(shape), c12s[i % 3],
+                           gates[i % 3]))
+        leaves[8][1][100] = float("nan")
+        shapes = [tuple(leaf[0].shape) for leaf in leaves]
+        want = [tuple(t.clone() if torch.is_tensor(t) and j in (0, 2, 3)
+                      else t for j, t in enumerate(leaf)) for leaf in leaves]
+        fa32.multi_leaf_update_ref(want, lr=LR, b1=B1, b2=B2, eps=EPS)
+        before = fa32.FUSED_ADAM_FP32.launches
+        fa32.multi_leaf_update(leaves, lr=LR, b1=B1, b2=B2, eps=EPS)
+        torch.cuda.synchronize()
+        assert fa32.FUSED_ADAM_FP32.launches - before == \
+            fa32.launches_per_update(shapes) == 3
+        for leaf, w in zip(leaves, want):
+            for j in (0, 2, 3):
+                a, b = leaf[j], w[j]
+                same = a.view(torch.int16 if a.element_size() == 2
+                              else torch.int32) == \
+                    b.view(torch.int16 if b.element_size() == 2
+                           else torch.int32)
+                assert bool((same | (a.isnan() & b.isnan())).all())
+        assert torch.isnan(leaves[8][0][100])
+
+
+@pytest.mark.cuda
+def test_fused_adam_fp32_refuses_what_the_kernel_does_not_take(cuda):
+    p = torch.randn(8, 16, device=cuda)
+    c12 = torch.tensor([1 - B1, 1 - B2], device=cuda)
+    leaf = [p, torch.randn_like(p), torch.zeros_like(p), torch.zeros_like(p),
+            c12, None]
+    before = fa32.FUSED_ADAM_FP32.launches
+    for at, bad, err in ((1, leaf[1].cpu(), ValueError),
+                         (0, p.double(), TypeError),
+                         (2, leaf[2].half(), TypeError),
+                         (1, leaf[1].t(), ValueError),
+                         (4, c12.cpu(), ValueError)):
+        args = list(leaf)
+        args[at] = bad
+        with pytest.raises(err):
+            fa32.multi_leaf_update([tuple(args)], lr=LR, b1=B1, b2=B2,
+                                   eps=EPS)
+    assert fa32.FUSED_ADAM_FP32.launches == before
+
+
+@pytest.mark.cuda
+def test_adam_fit_on_cuda_goes_through_k3(cuda):
+    """One ``fit`` epoch of a small MIMIC-style model with ``Adam`` on the
+    card: one K3 launch a step, and the parameters equal those of the same
+    epoch on the CPU within 2 lr a step (the card-against-CPU tolerance of
+    the other tests: a near-zero gradient may round to the other sign)."""
+    def model(device):
+        return MultiModN(
+            8, [tenc.MIMICMLPEncoder(8, w, (16,), 0.0) for w in (3, 5)],
+            [tdec.MLPDecoder(8, (16,), 2)], 1.0, 0.0, seed=5, device=device)
+    gpu, cpu = model(cuda), model("cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.default_rng(2)
+    X = rng.normal(size=(64, 8)).astype(np.float32)
+    X[::5, :3] = np.nan
+    y = (X[:, 3:4] > 0).astype(np.int64)
+    ds = PartitionDataset(X, y, [3, 5])
+    before = fa32.FUSED_ADAM_FP32.launches
+    for m in (gpu, cpu):
+        m.fit(ArrayLoader(ds, 16), Adam(LR), "cross_entropy", epochs=1)
+    torch.cuda.synchronize()
+    assert fa32.FUSED_ADAM_FP32.launches - before == 4
+    diffs = np.concatenate([np.abs(a - b).reshape(-1) for a, b in zip(
+        tree_leaves(gpu.state_dict()), tree_leaves(cpu.state_dict()))])
+    assert diffs.max() <= 2 * 4 * LR
 
 
 @pytest.mark.cuda
